@@ -10,25 +10,33 @@ failure; nothing is caught.
 1. Build: the hand-written kernels are compiled from csrc/ (one nvcc per
    source, all at once); prints the build seconds and the card's name and
    power limit.
-2. Kernel checks: K1 (LV-lanes), K2 (packed bitpar) and K3 (LV-CIGAR)
-   each against its plain PyTorch version on the card, on random edit
-   cases at the main path's shapes; integers must be bit-identical and
-   log-probabilities within rtol/atol 1e-5.  Times kernel and plain
-   version with CUDA events.
-3. Golden: tests/test_golden.py's dataset through the port's `index` +
-   `single` CLI on the card must reproduce tests/golden/single_100bp.sam
-   (without @PG) byte for byte.
-4. Real size: `index` on a 64 Mb hg-like genome, then `single -bs 1024` on
-   16 batches of simulated 100 bp reads (substitutions, indels, both
-   strands).  The launch counters are zeroed just before this run and read
-   just after; each kernel must have launched.  Prints reads/s, the
-   aligned share, the share placed at the true origin, index-build
-   seconds, peak device memory and the pipeline's wait profile, and
-   checks the placement share.  Then the engine alone on the same index
-   and reads (SingleAligner.align_batch_device + the grouped fetch): wall
-   ms per batch, and under torch.profiler the device's busy ms, its idle
-   share, device operations and the hand-written kernels' ms per batch.
-5. Prints the kernels line, the card line, and last the result line.
+2. Kernel checks: K1 (LV-lanes), K2 (packed bitpar, forward and every
+   mate-rescue form), K3 (LV-CIGAR) and K4 (bitpar over code rows) each
+   against its plain PyTorch version on the card, on random edit cases at
+   the paths' shapes (K1 also at the rescue's e_max 17 and free 0 / free =
+   read length rows); integers must be bit-identical and log-probabilities
+   within rtol/atol 1e-5.  Times kernel and plain version with CUDA events.
+3. Golden: tests/test_golden.py's and tests/test_golden_paired_rna.py's
+   datasets through the port's `index` + `single` and `index` + `paired`
+   CLI on the card must reproduce tests/golden/single_100bp.sam and
+   tests/golden/paired_100bp.sam (without @PG) byte for byte.
+4. Real size: `index` on a 64 Mb hg-like genome, then on that one index
+   a. `single -bs 1024` on 16 batches of simulated 100 bp reads
+      (substitutions, indels, both strands);
+   b. `paired -bs 1024` on 16 batches of 1024 simulated pairs (insert
+      200-400, 1% substitutions).
+   The launch counters are zeroed just before each run and read just
+   after; each kernel of that path must have launched.  Prints the rate,
+   the aligned share, the share placed at the true origin (checked), the
+   index-build seconds, peak device memory and the pipeline's wait
+   profile.  Then each engine alone on the same index and reads
+   (SingleAligner / PairedAligner.align_batch_device + the fetch): wall ms
+   per batch, and under torch.profiler the device's busy ms, its idle
+   share, device operations and the hand-written kernels' ms per batch;
+   for pairs also the pair-found share and the rescued ends.
+5. stringz: the port's tools/stringz at its defaults on the card; K4 must
+   have launched.
+6. Prints the kernels line, the card line, and last the result line.
 """
 import contextlib
 import functools
@@ -228,10 +236,8 @@ def check_k2(dev, rng):
     ms = time_ms(lambda: bitpar.bitpar_packed(pat, w, tl, **kw), 20)
     plain_ms = time_ms(lambda: bitpar.bitpar_distance_plain(
         pat, bitpar.unpack_words(w)[:, OFF:OFF + TXT], tl, P=P), 3)
-    W = (P + 31) // 32
-    ops = float(B) * TXT * (W * 22 + 8) + B * P * 4 * W
     nbytes = B * (P + 4 * NW + 4) + B * 4
-    b_ms, b_by = bound(nbytes, ops)
+    b_ms, b_by = bound(nbytes, bitpar_ops(B, TXT, P))
     return dict(name="K2_bitpar_packed", route="cuda",
                 source="snap_rnaseq_tpu_torch/csrc/bitpar_packed.cu",
                 replaces="snap_rnaseq_tpu/ops/bitpar.py:69",
@@ -283,6 +289,150 @@ def check_k3(dev, rng):
                 indel_rows=int((want.net_indel != 0).sum()))
 
 
+def check_k1_rescue(dev, rng):
+    """K1 at the mate rescue's call (score_phase with seed_len = 0): 1024
+    reads, so 2048 rows, P = 100, T = 117, e_max = 17; the forward rows
+    have free prefix 0 and the reversed-head rows free = P (distance 0,
+    log-probability 0)."""
+    import torch
+    from snap_rnaseq_tpu_torch.ops import lv
+    from snap_rnaseq_tpu_torch.ops.lv_cuda import lv_lanes
+    C, P, E = 1024, READ_LEN, 17
+    B, T = 2 * C, P + E
+    pats, texts, t_len = edit_cases(rng, B, P, T, E + 2)
+    free = np.repeat(np.array([0, P], np.int32), C)
+    quals = rng.integers(35, 74, (B, P)).astype(np.uint8)
+    to = lambda a: torch.from_numpy(a).to(dev)
+    args = (to(pats), to(np.full(B, P, np.int32)), to(texts), to(t_len),
+            to(np.full(B, E, np.int32)), lv.phred_log_prob_device(to(quals)))
+    fr = to(free)
+    got = lv_lanes(*args, fr, e_max=E)
+    want = lv._lv_distance_plain(*args, fr, e_max=E)
+    for f in ("distance", "e_final", "d_final", "net_indel"):
+        assert_same(f"K1 rescue {f}", getattr(got, f), getattr(want, f))
+    err = logp_err("K1 rescue", got.log_prob, want.log_prob)
+    head = want.distance[C:]
+    if bool((head != 0).any()) or bool((want.log_prob[C:] != 0).any()):
+        raise AssertionError("K1 rescue: free = P rows are not 0 / 0")
+    ms = time_ms(lambda: lv_lanes(*args, fr, e_max=E), 20)
+    plain_ms = time_ms(lambda: lv._lv_distance_plain(*args, fr, e_max=E), 3)
+    dist = want.distance.cpu().numpy()
+    levels = np.where(dist >= 0, want.e_final.cpu().numpy(), E)
+    b_ms, b_by = bound(B * (P + T + 4 * P + 16) + B * 20, lv_ops(levels, P))
+    return dict(name="K1_lv_lanes (rescue, e_max 17)", max_abs_err=err,
+                ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+                rows=B, found=int((dist[:C] >= 0).sum()))
+
+
+def bitpar_ops(B, TXT, P):
+    """32-bit operations of the bit-parallel scan: ~22 per pattern word
+    and ~8 more per text column, plus the Peq build."""
+    W = (P + 31) // 32
+    return float(B) * TXT * (W * 22 + 8) + B * P * 4 * W
+
+
+def packed_cases(rng, B, P, TXT, off, reverse, free_start):
+    """Packed window rows with an edited copy of the pattern planted in
+    half of them (where a global start can reach it)."""
+    from snap_rnaseq_tpu_torch.ops.genome_gather import pack_genome_4bit
+    NW = (off + TXT + 7) // 8 + 1
+    codes = rng.integers(0, 4, (B, NW * 8), dtype=np.uint8)
+    codes[rng.random(codes.shape) < 0.002] = 5
+    pats = rng.integers(0, 4, (B, P), dtype=np.uint8)
+    pats[rng.random((B, P)) < 0.005] = 4
+    seg = pats % 4
+    flip = rng.random(seg.shape) < 0.04
+    seg[flip] = (seg[flip] + 1) % 4
+    if reverse:
+        seg = seg[:, ::-1]
+    for i in range(0, B, 2):
+        s = (off + int(rng.integers(0, TXT - P)) if free_start
+             else off + TXT - P if reverse else off)
+        codes[i, s:s + P] = seg[i]
+    words = pack_genome_4bit(codes.reshape(-1))[:B * NW].reshape(B, NW)
+    return pats, words, NW
+
+
+def check_k2_rescue(dev, rng):
+    """K2's mate-rescue form at the rescue's shape: 1024 pairs x 2 mate
+    candidates x 2 windows = 4096 rows per end, P = 100, TXT = WLEN =
+    1,084 at the paired defaults, packed_off 0, reverse + free_start +
+    track_pos.  Then the five other non-forward flag combinations and the
+    forward one at a small size, bit-identical only."""
+    import torch
+    from snap_rnaseq_tpu_torch.ops import bitpar, u32
+    to = lambda a: torch.from_numpy(a).to(dev)
+
+    def case(B, P, TXT, off, reverse, free_start, track_pos):
+        pats, words, NW = packed_cases(rng, B, P, TXT, off, reverse,
+                                       free_start)
+        pat, w = to(pats), u32.from_numpy(words, dev)
+        tl = to(np.full(B, TXT, np.int32))
+        kw = dict(P=P, TXT=TXT, packed_off=off, reverse=reverse,
+                  free_start=free_start, track_pos=track_pos)
+        flags = dict(track_pos=track_pos, free_start=free_start)
+
+        def plain():
+            text = bitpar.unpack_words(w)[:, off:off + TXT]
+            return bitpar.bitpar_distance_plain(
+                pat, text.flip(1) if reverse else text, tl, P=P, **flags)
+
+        got = bitpar.bitpar_packed(pat, w, tl, **kw)
+        want = plain()
+        assert_same(f"K2 form r={reverse} f={free_start} t={track_pos}",
+                    got, want)
+        return pat, w, tl, kw, plain, NW, want
+
+    for r in (False, True):
+        for f in (False, True):
+            for t in (False, True):
+                if (r, f, t) != (True, True, True):
+                    case(2048, 37, 300, 5, r, f, t)
+    B, P, TXT = 4096, READ_LEN, 1084
+    pat, w, tl, kw, plain, NW, want = case(B, P, TXT, 0, True, True, True)
+    ms = time_ms(lambda: bitpar.bitpar_packed(pat, w, tl, **kw), 20)
+    plain_ms = time_ms(plain, 3)
+    b_ms, b_by = bound(B * (P + 4 * NW + 4) + B * 4, bitpar_ops(B, TXT, P))
+    return dict(name="K2_bitpar_rescue", route="cuda",
+                source="snap_rnaseq_tpu_torch/csrc/bitpar_packed.cu",
+                replaces="snap_rnaseq_tpu/ops/bitpar.py:69",
+                max_abs_err=0.0, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
+                bound_by=b_by, library_ms=None, rows=B,
+                within_e_max=int(((want >> 12) <= 17).sum()))
+
+
+def check_k4(dev, rng):
+    """K4 at the stringz tool's shape: 16,384 rows, P = 100, TXT = 131 u8
+    code rows, codes >= 4 and the padding byte 255 included; the plain
+    (global-start) form the tool times, then free_start and track_pos."""
+    import torch
+    from snap_rnaseq_tpu_torch.ops import bitpar
+    B, P, TXT = 16_384, READ_LEN, READ_LEN + 31
+    pats, texts, _ = edit_cases(rng, B, P, TXT, 6)
+    texts[rng.random((B, TXT)) < 0.005] = 4
+    texts[:256, TXT - 8:] = 255
+    to = lambda a: torch.from_numpy(a).to(dev)
+    pat, txt = to(pats), to(texts)
+    tl = to(rng.integers(P, TXT + 1, B).astype(np.int32))
+    for flags in (dict(), dict(free_start=True),
+                  dict(track_pos=True, free_start=True)):
+        got = bitpar.bitpar_rows(pat, txt, tl, P=P, **flags)
+        want = bitpar.bitpar_distance_plain(pat, txt, tl, P=P, **flags)
+        assert_same(f"K4 {flags}", got, want)
+    want = bitpar.bitpar_distance_plain(pat, txt, tl, P=P)
+    ms = time_ms(lambda: bitpar.bitpar_rows(pat, txt, tl, P=P), 20)
+    plain_ms = time_ms(lambda: bitpar.bitpar_distance_plain(
+        pat, txt, tl, P=P), 3)
+    b_ms, b_by = bound(B * (P + TXT + 4) + B * 4, bitpar_ops(B, TXT, P))
+    return dict(name="K4_bitpar_rows", route="cuda",
+                source="snap_rnaseq_tpu_torch/csrc/bitpar_rows.cu",
+                replaces="snap_rnaseq_tpu/ops/bitpar.py:69 (unpacked, "
+                         "call :179)",
+                max_abs_err=0.0, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
+                bound_by=b_by, library_ms=None, rows=B,
+                within_6=int((want <= 6).sum()))
+
+
 # ---------------------------------------------------------------- phase 3
 
 def golden_dataset(tmp):
@@ -327,18 +477,71 @@ def run_cli(argv):
     return buf.getvalue()
 
 
+def golden_paired_dataset(tmp):
+    """tests/test_golden_paired_rna.py's genome (_build_ref, without the
+    annotation) and paired dataset (_paired_dataset), rebuilt with the
+    port's modules."""
+    from snap_rnaseq_tpu_torch.index.genome import read_fasta_genome
+    from snap_rnaseq_tpu_torch.utils.tables import (decode_bases,
+                                                    reverse_complement_codes)
+    rng = np.random.default_rng(77177)
+    chr1 = decode_bases(rng.integers(0, 4, 60000, dtype=np.uint8))
+    chr2 = decode_bases(rng.integers(0, 4, 30000, dtype=np.uint8))
+    fa = os.path.join(tmp, "pref.fa")
+    with open(fa, "wb") as f:
+        f.write(b">chr1\n" + chr1 + b"\n>chr2\n" + chr2 + b"\n")
+    g = read_fasta_genome(fa)
+    rng = np.random.default_rng(424242)
+    L = 100
+    codes = np.asarray(g.codes)
+    fq1, fq2 = os.path.join(tmp, "g_r1.fq"), os.path.join(tmp, "g_r2.fq")
+    with open(fq1, "wb") as f0, open(fq2, "wb") as f1:
+        n = 0
+        while n < 48:
+            ins = int(rng.integers(220, 420))
+            piece = int(rng.integers(0, 2))
+            base = int(g.piece_offsets[piece])
+            plen = 60000 if piece == 0 else 30000
+            s = base + int(rng.integers(0, plen - ins))
+            frag = codes[s:s + ins]
+            if (frag > 3).any():
+                continue
+            a = frag[:L].copy()
+            b = reverse_complement_codes(frag[ins - L:].copy())
+            for r in (a, b):
+                for _ in range(int(rng.integers(0, 3))):
+                    p = int(rng.integers(0, L))
+                    r[p] = (r[p] + int(rng.integers(1, 4))) % 4
+            f0.write(b"@gp%d/1\n" % n + decode_bases(a) + b"\n+\n"
+                     + b"I" * L + b"\n")
+            f1.write(b"@gp%d/2\n" % n + decode_bases(b) + b"\n+\n"
+                     + b"I" * L + b"\n")
+            n += 1
+    return fa, fq1, fq2
+
+
+def same_as_golden(out, golden_name):
+    got = [l for l in open(out).read().splitlines() if not l.startswith("@PG")]
+    want = open(os.path.join(ROOT, "tests", "golden",
+                             golden_name)).read().splitlines()
+    if got != want:
+        bad = sum(a != b for a, b in zip(got, want)) + abs(len(got) - len(want))
+        raise AssertionError(f"{golden_name}: the SAM differs on the card "
+                             f"({bad} lines)")
+    return len(got)
+
+
 def golden_phase(tmp, device="cuda"):
     fa, fq = golden_dataset(tmp)
     idx, out = os.path.join(tmp, "gidx"), os.path.join(tmp, "golden.sam")
     run_cli(["index", fa, idx])
     run_cli(["single", idx, fq, "-o", out, "--device", device])
-    got = [l for l in open(out).read().splitlines() if not l.startswith("@PG")]
-    want = open(os.path.join(ROOT, "tests", "golden",
-                             "single_100bp.sam")).read().splitlines()
-    if got != want:
-        bad = sum(a != b for a, b in zip(got, want)) + abs(len(got) - len(want))
-        raise AssertionError(f"golden SAM differs on the card ({bad} lines)")
-    return len(got)
+    n_single = same_as_golden(out, "single_100bp.sam")
+    fa, fq1, fq2 = golden_paired_dataset(tmp)
+    idx, out = os.path.join(tmp, "gpidx"), os.path.join(tmp, "golden_p.sam")
+    run_cli(["index", fa, idx])
+    run_cli(["paired", idx, fq1, fq2, "-o", out, "--device", device])
+    return n_single, same_as_golden(out, "paired_100bp.sam")
 
 
 # ---------------------------------------------------------------- phase 4
@@ -378,12 +581,15 @@ def write_fasta(path, codes, name="ref"):
         f.write(b"\n")
 
 
-def real_size_phase(tmp, n_bases, n_reads, batch, device="cuda"):
-    import torch
-    from snap_rnaseq_tpu_torch.ops import kernels as kx
+SINGLE_PATH = ("K1_lv_lanes", "K2_bitpar_packed", "K3_lv_cigar")
+PAIRED_PATH = SINGLE_PATH + ("K2_bitpar_rescue",)
+STRINGZ_PATH = ("K4_bitpar_rows",)
+
+
+def real_index(tmp, n_bases):
+    """The 64 Mb hg-like genome and its index, built once through the CLI
+    for both real-size runs."""
     from snap_rnaseq_tpu_torch.utils.synth_genome import hg_like_genome
-    from snap_rnaseq_tpu_torch.utils.tables import decode_bases
-    rng = np.random.default_rng(20261016)
     codes = hg_like_genome(n_bases, seed=0)
     fa = os.path.join(tmp, "hg_like.fa")
     write_fasta(fa, codes)
@@ -392,7 +598,46 @@ def real_size_phase(tmp, n_bases, n_reads, batch, device="cuda"):
     run_cli(["index", fa, idx])
     index_s = time.time() - t0
     log(f"index: {n_bases} bases in {index_s:.3f} s")
+    return codes, idx, index_s
 
+
+def counted_cli(argv, path):
+    """One CLI run on the card with the launch counters zeroed just before
+    and read just after; raises if a kernel of `path` did not launch.
+    Returns (stdout, launches, wall s, peak device bytes)."""
+    import torch
+    from snap_rnaseq_tpu_torch.ops import kernels as kx
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    kx.reset_launches()                       # zero just before the run
+    t0 = time.time()
+    stdout = run_cli(argv)
+    torch.cuda.synchronize()
+    wall_s = time.time() - t0
+    launches = dict(kx.LAUNCHES)              # read just after
+    missing = [k for k in path if launches[k] <= 0]
+    if missing:
+        raise AssertionError(f"kernels not launched on the {argv[0]} path: "
+                             f"{missing}")
+    return stdout, launches, wall_s, torch.cuda.max_memory_allocated()
+
+
+def perf_row(perf):
+    """(total reads, align seconds) from the CLI's -pf row."""
+    _, total, _useful, align_s, *_ = open(perf).read().split("\t")[:5]
+    return int(total), float(align_s)
+
+
+def wait_line(stdout):
+    # the pipeline's split of its wall time (utils/stats.py WaitProfile):
+    # reader, waits on device results, SAM writing
+    return next((l for l in stdout.splitlines()
+                 if l.startswith("wait profile")), None)
+
+
+def single_real_phase(tmp, codes, idx, index_s, n_reads, batch):
+    from snap_rnaseq_tpu_torch.utils.tables import decode_bases
+    rng = np.random.default_rng(20261016)
     # the id carries the true start; SAM POS is 1-based within the one
     # chromosome, so POS - 1 is directly comparable
     reads = simulate_reads(codes, n_reads, rng)
@@ -403,21 +648,10 @@ def real_size_phase(tmp, n_bases, n_reads, batch, device="cuda"):
                     + b"\n+\n" + b"I" * READ_LEN + b"\n")
     out = os.path.join(tmp, "out.sam")
     perf = os.path.join(tmp, "perf.tsv")
-    cuda = device == "cuda"
-    if cuda:
-        torch.cuda.synchronize()
-        torch.cuda.reset_peak_memory_stats()
-    kx.reset_launches()                       # zero just before the run
-    t0 = time.time()
-    stdout = run_cli(["single", idx, fq, "-o", out, "-bs", str(batch),
-                      "--device", device, "-pf", perf])
-    if cuda:
-        torch.cuda.synchronize()
-    wall_s = time.time() - t0
-    launches = dict(kx.LAUNCHES)              # read just after
-    peak = torch.cuda.max_memory_allocated() if cuda else None
-    _, total, useful, align_s, *_ = open(perf).read().split("\t")[:5]
-    total, align_s = int(total), float(align_s)
+    stdout, launches, wall_s, peak = counted_cli(
+        ["single", idx, fq, "-o", out, "-bs", str(batch), "--device",
+         "cuda", "-pf", perf], SINGLE_PATH)
+    total, align_s = perf_row(perf)
 
     n_al = n_true = 0
     for line in open(out):
@@ -434,72 +668,182 @@ def real_size_phase(tmp, n_bases, n_reads, batch, device="cuda"):
                wall_s=wall_s, aligned_share=n_al / total,
                at_origin_share=n_true / total, index_build_s=index_s,
                peak_device_bytes=peak, launches=launches,
-               # the pipeline's split of its wall time (utils/stats.py
-               # WaitProfile): reader, waits on device results, SAM writing
-               wait_profile=next((l for l in stdout.splitlines()
-                                  if l.startswith("wait profile")), None))
-    res["engine"] = engine_phase(idx, reads, batch)
+               wait_profile=wait_line(stdout))
+    res["engine"] = single_engine_phase(
+        idx, np.stack([r for _, _, r in reads]), batch)
     if res["at_origin_share"] < 0.8:
         raise AssertionError(f"only {res['at_origin_share']:.3f} of reads "
                              "placed at their origin")
-    missing = [k for k, v in launches.items() if v <= 0]
-    if missing:
-        raise AssertionError(f"kernels not launched on the main path: "
-                             f"{missing}")
     return res
 
 
-def engine_phase(idx, reads, batch, n_warm=2, n_timed=4):
-    """The engine alone on `reads`: SingleAligner.align_batch_device and
-    the grouped fetch per batch, as the pipeline calls them.  After
-    n_warm batches, n_timed batches are timed on the host's clock and the
-    same n_timed again under torch.profiler, whose device events give the
-    busy time (kernels and copies summed) and the operation count."""
+def paired_real_phase(tmp, codes, idx, index_s, n_pairs, batch):
+    """`paired -bs 1024 -pf` on wgsim-style pairs; each end's id carries
+    both true starts."""
+    from snap_rnaseq_tpu_torch.utils.synth_genome import wgsim_pairs
+    from snap_rnaseq_tpu_torch.utils.tables import decode_bases
+    r0, q0, r1, q1, p0, p1 = wgsim_pairs(codes, n_pairs, READ_LEN,
+                                         seed=20261017)
+    fq1, fq2 = os.path.join(tmp, "p_r1.fq"), os.path.join(tmp, "p_r2.fq")
+    with open(fq1, "wb") as f0, open(fq2, "wb") as f1:
+        for i in range(n_pairs):
+            rid = b"@p%d_%d_%d" % (i, p0[i], p1[i])
+            f0.write(rid + b"/1\n" + decode_bases(r0[i]) + b"\n+\n"
+                     + q0[i].tobytes() + b"\n")
+            f1.write(rid + b"/2\n" + decode_bases(r1[i]) + b"\n+\n"
+                     + q1[i].tobytes() + b"\n")
+    out = os.path.join(tmp, "paired.sam")
+    perf = os.path.join(tmp, "perf_p.tsv")
+    stdout, launches, wall_s, peak = counted_cli(
+        ["paired", idx, fq1, fq2, "-o", out, "-bs", str(batch), "--device",
+         "cuda", "-pf", perf], PAIRED_PATH)
+    total, align_s = perf_row(perf)
+
+    n_al = [0, 0]
+    n_true = 0
+    for line in open(out):
+        if line.startswith("@"):
+            continue
+        f = line.split("\t", 4)
+        flag = int(f[1])
+        if flag & 4:
+            continue
+        end = 0 if flag & 0x40 else 1
+        n_al[end] += 1
+        truth = int(f[0].split("_")[1 + end])
+        if abs(int(f[3]) - 1 - truth) <= 2 * READ_LEN:
+            n_true += 1
+    res = dict(pairs=total // 2, align_s=align_s,
+               pairs_per_s=total / 2 / align_s, wall_s=wall_s,
+               aligned_share_end0=n_al[0] / n_pairs,
+               aligned_share_end1=n_al[1] / n_pairs,
+               at_origin_share=n_true / (2 * n_pairs), index_build_s=index_s,
+               peak_device_bytes=peak, launches=launches,
+               wait_profile=wait_line(stdout))
+    res["engine"] = paired_engine_phase(idx, r0, q0, r1, q1, batch)
+    if res["at_origin_share"] < 0.8:
+        raise AssertionError(f"only {res['at_origin_share']:.3f} of ends "
+                             "placed at their origin")
+    return res
+
+
+# device kernels of the port, by the name the profiler gives them
+KERNEL_NAMES = (("K1_lv_lanes", "lv_lanes_kernel"),
+                ("K2_bitpar_packed", "bitpar_packed_kernel"),
+                ("K3_lv_cigar", "lv_cigar_kernel"),
+                ("K4_bitpar_rows", "bitpar_rows_kernel"))
+
+
+def kernel_of(event_name):
+    for name, sym in KERNEL_NAMES:
+        if sym in event_name:
+            # K2's rescue instantiations carry a true template flag
+            if name == "K2_bitpar_packed" and "true" in event_name:
+                return "K2_bitpar_rescue"
+            return name
+    return None
+
+
+def engine_phase(step, batches, per_batch, n_warm=2, n_timed=4):
+    """An engine alone: `step(batch)` dispatches one batch and fetches its
+    outputs, as the pipeline does.  After n_warm batches, n_timed batches
+    are timed on the host's clock and the same n_timed again under
+    torch.profiler, whose device events give the busy time (kernels and
+    copies summed), the operation count and each kernel's time."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
-    from snap_rnaseq_tpu_torch.index.hash_index import GenomeIndex
-    from snap_rnaseq_tpu_torch.models.single import SingleAligner, fetch
-    aligner = SingleAligner(GenomeIndex.load(idx), device="cuda")
-    codes = np.stack([r for _, _, r in reads])
-    quals = np.full((batch, READ_LEN), ord("I"), np.uint8)
-    batches = [codes[i * batch:(i + 1) * batch]
-               for i in range(n_warm + n_timed)]
 
     def run(group):
         for b in group:
-            fetch(aligner.align_batch_device(torch.from_numpy(b).cuda(),
-                                             torch.from_numpy(quals).cuda()))
+            step(b)
         torch.cuda.synchronize()
 
     run(batches[:n_warm])
+    timed = batches[n_warm:n_warm + n_timed]
     t0 = time.time()
-    run(batches[n_warm:])
+    run(timed)
     wall_ms = (time.time() - t0) * 1e3 / n_timed
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
-        run(batches[n_warm:])
-    busy_us, n_ops = 0.0, 0
-    kern_us = dict.fromkeys(("lv_lanes_kernel", "bitpar_packed_kernel"), 0.0)
+        run(timed)
+    busy_us, n_ops, kern_us = 0.0, 0, {}
     for e in prof.events():
         if e.device_type != DeviceType.CUDA:
             continue
         us = e.time_range.elapsed_us()
         busy_us += us
         n_ops += 1
-        for name in kern_us:
-            if name in e.name:
-                kern_us[name] += us
+        k = kernel_of(e.name)
+        if k:
+            kern_us[k] = kern_us.get(k, 0.0) + us
     busy_ms = busy_us / 1e3 / n_timed
     if n_ops == 0:
         raise AssertionError("the profiler saw no device operation")
-    return dict(batch=batch, wall_ms_per_batch=wall_ms,
-                reads_per_s=batch * 1e3 / wall_ms,
+    return dict(batch=per_batch, wall_ms_per_batch=wall_ms,
+                per_s=per_batch * 1e3 / wall_ms,
                 device_busy_ms_per_batch=busy_ms,
                 device_idle_share=1.0 - busy_ms / wall_ms,
                 device_ops_per_batch=n_ops / n_timed,
                 kernel_ms_per_batch={k: v / 1e3 / n_timed
-                                     for k, v in kern_us.items()})
+                                     for k, v in sorted(kern_us.items())})
+
+
+def single_engine_phase(idx, codes, batch):
+    """SingleAligner.align_batch_device + fetch on the first batches of
+    the single-end reads."""
+    import torch
+    from snap_rnaseq_tpu_torch.index.hash_index import GenomeIndex
+    from snap_rnaseq_tpu_torch.models.single import SingleAligner, fetch
+    aligner = SingleAligner(GenomeIndex.load(idx), device="cuda")
+    quals = torch.full((batch, READ_LEN), ord("I"), dtype=torch.uint8,
+                       device="cuda")
+    batches = [codes[i * batch:(i + 1) * batch] for i in range(6)]
+    return engine_phase(lambda b: fetch(aligner.align_batch_device(
+        torch.from_numpy(b).cuda(), quals)), batches, batch)
+
+
+def paired_engine_phase(idx, r0, q0, r1, q1, batch):
+    """PairedAligner.align_batch_device + fetch.  Every batch of the CLI
+    run goes through once first (the first two are the warm-up), for the
+    pair-found share and the rescued ends of the same pairs."""
+    import torch
+    from snap_rnaseq_tpu_torch.index.hash_index import GenomeIndex
+    from snap_rnaseq_tpu_torch.models.paired import PairedAligner
+    from snap_rnaseq_tpu_torch.models.single import fetch
+    aligner = PairedAligner(GenomeIndex.load(idx), device="cuda")
+    n = r0.shape[0] // batch
+    batches = [tuple(torch.from_numpy(a[i * batch:(i + 1) * batch]).cuda()
+                     for a in (r0, q0, r1, q1)) for i in range(n)]
+    found = rescued0 = rescued1 = 0
+    for b in batches:
+        out = fetch(aligner.align_batch_device(*b))
+        found += int(out["pair_found"].sum())
+        rescued0 += int(out["n_rescued0"])
+        rescued1 += int(out["n_rescued1"])
+    res = engine_phase(lambda b: fetch(aligner.align_batch_device(*b)),
+                       batches, batch)
+    res.update(pair_found_share=found / (n * batch), n_rescued0=rescued0,
+               n_rescued1=rescued1)
+    return res
+
+
+def stringz_phase():
+    """The stringz tool at its defaults on the card, counters zeroed just
+    before and read just after."""
+    from snap_rnaseq_tpu_torch.ops import kernels as kx
+    from snap_rnaseq_tpu_torch.tools import stringz
+    kx.reset_launches()
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = stringz.main([])
+    launches = dict(kx.LAUNCHES)
+    if rc != 0:
+        raise RuntimeError(f"stringz returned {rc}")
+    missing = [k for k in STRINGZ_PATH if launches[k] <= 0]
+    if missing:
+        raise AssertionError(f"kernels not launched by stringz: {missing}")
+    return buf.getvalue().splitlines(), launches
 
 
 # ---------------------------------------------------------------- main
@@ -513,6 +857,7 @@ def main():
     sys.path.insert(0, ROOT)
     from snap_rnaseq_tpu_torch.ops import kernels as kx
 
+    t_start = time.time()
     dev = torch.device("cuda")
     kind = torch.cuda.get_device_name(0)
     card = smi_line()
@@ -525,26 +870,48 @@ def main():
         "int32 op/s")
 
     rng = np.random.default_rng(7)
-    checks = [check_k1(dev, rng), check_k2(dev, rng), check_k3(dev, rng)]
+    checks = [check_k1(dev, rng), check_k1_rescue(dev, rng),
+              check_k2(dev, rng), check_k2_rescue(dev, rng),
+              check_k3(dev, rng), check_k4(dev, rng)]
     for c in checks:
         log(f"{c['name']}: {c['rows']} rows, kernel {c['ms']:.4f} ms, plain "
             f"{c['plain_ms']:.4f} ms, bound {c['bound_ms']:.5f} ms "
             f"({c['bound_by']}), max_abs_err {c['max_abs_err']}")
 
     with tempfile.TemporaryDirectory() as tmp:
-        n = golden_phase(tmp)
-        log(f"golden: {n} SAM lines identical on the card")
-        res = real_size_phase(tmp, GENOME_BASES, N_BATCHES * BATCH, BATCH)
-    log("real size: " + json.dumps(res))
+        n_single, n_paired = golden_phase(tmp)
+        log(f"golden: {n_single} single and {n_paired} paired SAM lines "
+            "identical on the card")
+        codes, idx, index_s = real_index(tmp, GENOME_BASES)
+        single = single_real_phase(tmp, codes, idx, index_s,
+                                   N_BATCHES * BATCH, BATCH)
+        log("real size, single: " + json.dumps(single))
+        paired = paired_real_phase(tmp, codes, idx, index_s,
+                                   N_BATCHES * BATCH, BATCH)
+        log("real size, paired: " + json.dumps(paired))
+    lines, sz_launches = stringz_phase()
+    for line in lines:
+        log(f"stringz: {line}")
+    log(f"stringz launches: {json.dumps(sz_launches)}")
+    log(f"total: {time.time() - t_start:.1f} s")
 
+    # launches: on the paired path (the newest of the main paths) for the
+    # kernels it runs, in the stringz run for K4; every path's counts too
+    by_path = dict(single=single["launches"], paired=paired["launches"],
+                   stringz=sz_launches)
     kernels = []
     for c in checks:
+        if "route" not in c:
+            continue
+        name = c["name"]
+        main_path = "stringz" if name in STRINGZ_PATH else "paired"
         kernels.append({k: c[k] for k in (
             "name", "route", "source", "replaces")} | dict(
-            launches=res["launches"][c["name"]],
+            launches=by_path[main_path][name],
             max_abs_err=c["max_abs_err"], ms=c["ms"],
             plain_ms=c["plain_ms"], bound_ms=c["bound_ms"],
-            bound_by=c["bound_by"], library_ms=c["library_ms"]))
+            bound_by=c["bound_by"], library_ms=c["library_ms"],
+            launches_by_path={p: v[name] for p, v in by_path.items()}))
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -5,6 +5,8 @@ AlignerOptions.cpp), with the subcommands this port carries:
 
   index   <ref.fa> <index-dir> [-s seedLen] [-lf loadFactor]
   single  <genome-dir> <input>... -o out.sam [--device cuda|cpu]
+  paired  <genome-dir> <r1> <r2> [<r1> <r2> ...] -o out.sam
+          [-s minSpacing maxSpacing] [-fs] [-I] [--device cuda|cpu]
 
 Index directories are the JAX package's on-disk format, so either package
 can read what the other wrote.  Flag names follow the reference
@@ -13,12 +15,13 @@ can read what the other wrote.  Flag names follow the reference
 
 The engine runs on `--device`, CUDA by default; without a card that
 raises rather than falling back.  Not yet ported (a clear error): the
-`paired` and `transcriptome` commands, the RNA form of `single`
-(genome-dir transcriptome-dir annotation input), `.bam`, `.gz` and sorted
-(`-so`) output, and `--hosts`.
+`transcriptome` and `trace` commands, the RNA forms of `single` and
+`paired` (genome-dir transcriptome-dir annotation input), `.bam`, `.gz`
+and sorted (`-so`) output, SAM/BAM input to `paired`, and `--hosts`.
 
     python -m snap_rnaseq_tpu_torch.cli index ref.fa idx
     python -m snap_rnaseq_tpu_torch.cli single idx reads.fq -o out.sam
+    python -m snap_rnaseq_tpu_torch.cli paired idx r1.fq r2.fq -o out.sam
 """
 from __future__ import annotations
 
@@ -48,8 +51,9 @@ def _load_index_cached(directory: str):
     return idx
 
 
-def _add_align_flags(p: argparse.ArgumentParser):
-    from .constants import SINGLE_DEFAULTS as d
+def _add_align_flags(p: argparse.ArgumentParser, paired: bool = False):
+    from .constants import PAIRED_DEFAULTS, SINGLE_DEFAULTS
+    d = PAIRED_DEFAULTS if paired else SINGLE_DEFAULTS
     p.add_argument("-o", dest="output", required=True,
                    help="output path (.sam)")
     p.add_argument("--device", dest="device", default="cuda",
@@ -106,6 +110,15 @@ def _add_align_flags(p: argparse.ArgumentParser):
     p.add_argument("-a", dest="_deprecated_a", default=None)
     p.add_argument("--help", action="help")
     p.add_argument("--hosts", dest="n_hosts", type=int, default=1)
+    if paired:
+        p.add_argument("-s", dest="spacing", type=int, nargs=2,
+                       default=[d["min_spacing"], d["max_spacing"]],
+                       help="min and max spacing for paired ends")
+        p.add_argument("-fs", dest="force_spacing", action="store_true",
+                       help="force spacing to lie between min and max")
+        p.add_argument("-I", dest="ignore_mismatched_ids",
+                       action="store_true",
+                       help="don't require mate read IDs to match")
 
 
 def _clip_mode(s: str) -> int:
@@ -170,6 +183,18 @@ def _positional_split(args):
     return pos, rest
 
 
+def _refuse_unported_output(a):
+    lower = a.output.lower()
+    if lower.endswith(".bam"):
+        raise NotPorted("BAM output")
+    if lower.endswith(".gz"):
+        raise NotPorted("gzip SAM output")
+    if a.sorted_output:
+        raise NotPorted("sorted output (-so)")
+    if a.n_hosts > 1:
+        raise NotPorted("multi-host alignment (--hosts)")
+
+
 def cmd_single(argv):
     pos, flags = _positional_split(argv)
     p = argparse.ArgumentParser(prog="snap-rna single", add_help=False)
@@ -187,15 +212,7 @@ def cmd_single(argv):
         print("usage: snap-rna single <genome-dir> <input>... -o out.sam",
               file=sys.stderr)
         return 2
-    lower = a.output.lower()
-    if lower.endswith(".bam"):
-        raise NotPorted("BAM output")
-    if lower.endswith(".gz"):
-        raise NotPorted("gzip SAM output")
-    if a.sorted_output:
-        raise NotPorted("sorted output (-so)")
-    if a.n_hosts > 1:
-        raise NotPorted("multi-host alignment (--hosts)")
+    _refuse_unported_output(a)
     genome_dir = pos[0]
     fastq = pos[1] if len(pos) == 2 else pos[1:]
 
@@ -227,6 +244,68 @@ def cmd_single(argv):
     return 0
 
 
+def _split_inputs(inputs):
+    """Input file list -> (fq1, fq2): one interleaved file, one r1/r2
+    pair, or several consecutive pairs (the reference's 'FASTQ files must
+    come in pairs' multi-input form)."""
+    if len(inputs) == 1:
+        return inputs[0], None
+    if len(inputs) == 2:
+        return inputs[0], inputs[1]
+    if len(inputs) % 2:
+        raise SystemExit("paired FASTQ inputs must come in pairs")
+    return list(inputs[0::2]), list(inputs[1::2])
+
+
+def cmd_paired(argv):
+    pos, flags = _positional_split(argv)
+    p = argparse.ArgumentParser(prog="snap-rna paired", add_help=False)
+    _add_align_flags(p, paired=True)
+    a = p.parse_args(flags)
+
+    import os as _os
+
+    from .models.paired_pipeline import (PairedEndPipeline,
+                                         PairedPipelineOptions)
+
+    if len(pos) >= 4 and _os.path.isdir(pos[1]):
+        raise NotPorted("RNA alignment (paired <genome-dir> "
+                        "<transcriptome-dir> <annotation> ...)")
+    if len(pos) < 2:
+        print("usage: snap-rna paired <genome-dir> <r1> <r2> [...] "
+              "-o out.sam", file=sys.stderr)
+        return 2
+    _refuse_unported_output(a)
+    if any(f.lower().endswith((".sam", ".bam")) for f in pos[1:]):
+        raise NotPorted("SAM/BAM input to paired")
+    genome_dir = pos[0]
+    fq1, fq2 = _split_inputs(pos[1:])
+
+    opt = PairedPipelineOptions(
+        batch_size=a.batch_size, use_m=a.use_m, read_group=a.read_group,
+        clipping=_clip_mode(a.clipping), compute_error=a.compute_error,
+        min_spacing=a.spacing[0], max_spacing=a.spacing[1],
+        pass_filter=a.pass_filter, misalign_threshold=a.misalign_threshold,
+        min_phred=a.min_phred, min_percent_above_phred=a.min_percent,
+        phred_offset=a.phred_offset, suppress=a.suppress,
+        ignore_mismatched_ids=a.ignore_mismatched_ids)
+    cmdline = "snap-rna paired " + " ".join(pos + flags)
+    for max_hits, max_dist in _sweep(a):
+        pipe = PairedEndPipeline(_load_index_cached(genome_dir),
+                                 options=opt, device=a.device,
+                                 max_k=max_dist, max_hits=max_hits,
+                                 num_seeds=a.num_seeds,
+                                 extra_search_depth=a.extra_search_depth,
+                                 force_spacing=a.force_spacing)
+        stats = pipe.run(fq1, fq2, a.output, command_line=cmdline)
+        print(stats.summary())
+        print(pipe.wait.summary())
+        if a.compute_error:
+            print(stats.roc_table())
+        _append_perf(a.perf_file, f"paired d={max_dist} h={max_hits}", stats)
+    return 0
+
+
 def _not_ported(name):
     def handler(argv):
         raise NotPorted(f"the '{name}' command")
@@ -249,10 +328,10 @@ def _split_runs(argv):
 def main(argv=None):
     argv = list(sys.argv[1:] if argv is None else argv)
     if not argv:
-        print("usage: snap-rna {index|single} ...", file=sys.stderr)
+        print("usage: snap-rna {index|single|paired} ...", file=sys.stderr)
         return 2
     handlers = {"index": cmd_index, "single": cmd_single,
-                "paired": _not_ported("paired"),
+                "paired": cmd_paired,
                 "transcriptome": _not_ported("transcriptome"),
                 "trace": _not_ported("trace")}
     for run in _split_runs(argv):

@@ -194,18 +194,42 @@ def _full_like(x, v):
 # phases
 # ----------------------------------------------------------------------
 
-def seed_phase(reads, schedule, seed_len, overflow, genome_size, cuckoo):
-    """Pack + look up every scheduled seed (cuckoo layout)."""
+def seed_phase(reads, schedule, seed_len, overflow, genome_size, cuckoo,
+               select_first_valid: int = 0):
+    """Pack + look up every scheduled seed (cuckoo layout).
+
+    select_first_valid=N: look up only each read's first N VALID schedule
+    positions (the paired engine's budget, one unit per valid position,
+    never reaches past them); out["sel_pos"] (B, N) holds the selected
+    position indices, 0 where a read has fewer valid positions."""
     packed = lk.pack_seeds(reads, schedule, seed_len)
+    sel_pos = None
+    if select_first_valid:
+        valid_all = packed["valid"]
+        v = valid_all.to(I32)
+        rank = _cumsum(v, 1) - v
+        match = valid_all[:, None, :] & (
+            rank[:, None, :] == torch.arange(
+                select_first_valid, dtype=I32,
+                device=reads.device)[None, :, None])
+        sel_pos = first_true(match, 2)                       # (B, N)
+        take = lambda x: row_select(x, sel_pos)
+        packed = dict(lo_f=take(packed["lo_f"]), hi_f=take(packed["hi_f"]),
+                      lo_r=take(packed["lo_r"]), hi_r=take(packed["hi_r"]),
+                      valid=match.any(dim=2),
+                      n_hi_bits=packed["n_hi_bits"])
     found, fwd_val, rc_val = lk.lookup_seeds_cuckoo(
         packed, cuckoo["ck_buckets"], cuckoo["ck_buckets2"],
         cuckoo["ck_stash"])
     cnt_f, base_f = lk.expand_counts(fwd_val, overflow, genome_size)
     cnt_r, base_r = lk.expand_counts(rc_val, overflow, genome_size)
-    return dict(valid=packed["valid"], found=found,
-                counts=torch.stack([cnt_f, cnt_r], dim=2),   # (B,S,2)
-                bases=torch.stack([base_f, base_r], dim=2),
-                vals=torch.stack([fwd_val, rc_val], dim=2))
+    out = dict(valid=packed["valid"], found=found,
+               counts=torch.stack([cnt_f, cnt_r], dim=2),   # (B,S,2)
+               bases=torch.stack([base_f, base_r], dim=2),
+               vals=torch.stack([fwd_val, rc_val], dim=2))
+    if sel_pos is not None:
+        out["sel_pos"] = sel_pos
+    return out
 
 
 def budget_phase(valid, counts_global, wraps, cfg: SingleAlignerConfig):

@@ -17,10 +17,14 @@ anyway.
     result = min over columns j < t_len of score.
 
 `bitpar_distance_plain` is the plain PyTorch version (u32 words carried in
-int32, ops/u32.py).  `bitpar_distance_words` routes by device: CPU -> the
-nibble unpack + plain version; CUDA -> the packed-text kernel K2
-(csrc/bitpar_packed.cu), which this slice runs in its forward, global-start
-form only.
+int32, ops/u32.py).  Two dispatchers route by device, with no fallback:
+
+  bitpar_distance_words  packed 4-bit text rows.  CPU -> the nibble unpack
+                         + plain version; CUDA -> K2 (csrc/bitpar_packed.cu)
+                         in every form: forward or reversed, global or free
+                         start, with or without track_pos.
+  bitpar_distance        (B, TXT) u8 code rows.  CPU -> the plain version;
+                         CUDA -> K4 (csrc/bitpar_rows.cu).
 """
 from __future__ import annotations
 
@@ -113,17 +117,14 @@ def bitpar_distance_words(pattern, words, t_len, *, P: int, TXT: int,
                           packed_off: int, track_pos: bool = False,
                           free_start: bool = False, reverse: bool = False):
     """Whole-read distances over 4-bit packed text: column j's code is
-    nibble packed_off + j of each row of `words` (int32-carried u32).
+    nibble packed_off + j of each row of `words` (int32-carried u32), or
+    with reverse nibble packed_off + TXT - 1 - j.
 
-    CPU tensors -> unpack + the plain version.  CUDA tensors -> K2; the
-    mate-rescue forms (reverse, free_start, track_pos) are not ported to
-    the card yet and raise."""
+    CPU tensors -> unpack + the plain version.  CUDA tensors -> K2."""
     if words.is_cuda:
-        if reverse or free_start or track_pos:
-            raise NotImplementedError(
-                "bitpar on CUDA: reverse/free_start/track_pos are not ported")
         return bitpar_packed(pattern, words, t_len, P=P, TXT=TXT,
-                             packed_off=packed_off)
+                             packed_off=packed_off, track_pos=track_pos,
+                             free_start=free_start, reverse=reverse)
     if words.device.type != "cpu":
         raise RuntimeError(f"bitpar: no kernel for {words.device}")
     text = unpack_words(words)[:, packed_off:packed_off + TXT]
@@ -133,31 +134,80 @@ def bitpar_distance_words(pattern, words, t_len, *, P: int, TXT: int,
                                  track_pos=track_pos, free_start=free_start)
 
 
+def bitpar_distance(pattern, text, t_len, *, P: int, track_pos: bool = False,
+                    free_start: bool = False):
+    """Distances over (B, TXT) code rows.  With track_pos the result is the
+    (score << 12) | end_column encoding, minimized lexicographically: the
+    EARLIEST best end column.
+
+    CPU tensors -> the plain version.  CUDA tensors -> K4."""
+    if text.is_cuda:
+        return bitpar_rows(pattern, text, t_len, P=P, track_pos=track_pos,
+                           free_start=free_start)
+    if text.device.type != "cpu":
+        raise RuntimeError(f"bitpar: no kernel for {text.device}")
+    return bitpar_distance_plain(pattern, text, t_len, P=P,
+                                 track_pos=track_pos, free_start=free_start)
+
+
+def _checked_rows(pattern, t_len, P, B, dev):
+    from . import kernels as kx
+    pattern = pattern.contiguous()
+    t_len = t_len.to(torch.int32).contiguous()
+    kx.require(pattern, "pattern", torch.uint8, 2, dev)
+    kx.require(t_len, "t_len", torch.int32, 1, dev)
+    if tuple(pattern.shape) != (B, P) or t_len.shape[0] != B:
+        raise ValueError(f"pattern {tuple(pattern.shape)} / t_len "
+                         f"{tuple(t_len.shape)} vs {B} rows, P={P}")
+    if not 1 <= P <= 128:
+        raise ValueError(f"bitpar kernels take 1 <= P <= 128, got {P}")
+    return pattern, t_len
+
+
 def bitpar_packed(pattern, words, t_len, *, P: int, TXT: int,
-                  packed_off: int) -> torch.Tensor:
-    """K2 wrapper: forward, global-start distances on the card."""
+                  packed_off: int, track_pos: bool = False,
+                  free_start: bool = False, reverse: bool = False
+                  ) -> torch.Tensor:
+    """K2 wrapper.  Counts the forward, global-start form as
+    K2_bitpar_packed and any other form (the mate rescue's) as
+    K2_bitpar_rescue."""
     from . import kernels as kx
     dev = words.device
     if dev.type != "cuda":
         raise RuntimeError(f"bitpar_packed needs CUDA tensors, got {dev}")
-    pattern = pattern.contiguous()
     words = words.contiguous()
-    t_len = t_len.to(torch.int32).contiguous()
-    kx.require(pattern, "pattern", torch.uint8, 2, dev)
     kx.require(words, "words", torch.int32, 2, dev)
-    kx.require(t_len, "t_len", torch.int32, 1, dev)
     B, NW = words.shape
-    if pattern.shape != (B, P) or t_len.shape[0] != B:
-        raise ValueError(f"pattern {tuple(pattern.shape)} / t_len "
-                         f"{tuple(t_len.shape)} vs words {(B, NW)}, P={P}")
-    if not 1 <= P <= 128:
-        raise ValueError(f"bitpar_packed takes 1 <= P <= 128, got {P}")
+    pattern, t_len = _checked_rows(pattern, t_len, P, B, dev)
     if packed_off < 0 or packed_off + TXT > 8 * NW:
         raise ValueError(f"columns [{packed_off}, {packed_off + TXT}) "
                          f"exceed {NW} packed words")
     out = torch.empty(B, dtype=torch.int32, device=dev)
-    err = kx.launcher("bitpar_packed")(kx.ptr(pattern), P, kx.ptr(words), NW, kx.ptr(t_len), TXT,
-             packed_off, B, kx.ptr(out), kx.stream())
+    err = kx.launcher("bitpar_packed")(
+        kx.ptr(pattern), P, kx.ptr(words), NW, kx.ptr(t_len), TXT,
+        packed_off, int(reverse), int(free_start), int(track_pos), B,
+        kx.ptr(out), kx.stream())
     kx.check(err, "bitpar_packed_launch")
-    kx.count_launch("K2_bitpar_packed")
+    rescue = reverse or free_start or track_pos
+    kx.count_launch("K2_bitpar_rescue" if rescue else "K2_bitpar_packed")
+    return out
+
+
+def bitpar_rows(pattern, text, t_len, *, P: int, track_pos: bool = False,
+                free_start: bool = False) -> torch.Tensor:
+    """K4 wrapper: pattern (B, P) u8, text (B, TXT) u8 code rows."""
+    from . import kernels as kx
+    dev = text.device
+    if dev.type != "cuda":
+        raise RuntimeError(f"bitpar_rows needs CUDA tensors, got {dev}")
+    text = text.contiguous()
+    kx.require(text, "text", torch.uint8, 2, dev)
+    B, TXT = text.shape
+    pattern, t_len = _checked_rows(pattern, t_len, P, B, dev)
+    out = torch.empty(B, dtype=torch.int32, device=dev)
+    err = kx.launcher("bitpar_rows")(
+        kx.ptr(pattern), P, kx.ptr(text), TXT, kx.ptr(t_len),
+        int(free_start), int(track_pos), B, kx.ptr(out), kx.stream())
+    kx.check(err, "bitpar_rows_launch")
+    kx.count_launch("K4_bitpar_rows")
     return out

@@ -3,7 +3,7 @@
 Each `csrc/*.cu` source is compiled by `nvcc` for `sm_90a` into a shared
 library with a plain C interface, loaded with ctypes.  Libraries are built
 at first use from the package's own sources into `csrc/_build/`, keyed by
-a hash of the source, the shared header and the flags, so an edited kernel
+a hash of the source, the shared headers and the flags, so an edited kernel
 is rebuilt and an unchanged one is reused.  `build_all()` starts one nvcc
 per source at once and waits for all of them.
 
@@ -35,10 +35,11 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 # source file per library; each exports C functions returning cudaError_t
 SOURCES = {
     "lv_lanes": "lv_lanes.cu",           # K1
-    "bitpar_packed": "bitpar_packed.cu",  # K2
+    "bitpar_packed": "bitpar_packed.cu",  # K2 (forward and rescue forms)
     "lv_cigar": "lv_cigar.cu",           # K3
+    "bitpar_rows": "bitpar_rows.cu",      # K4
 }
-_HEADERS = ("lv_common.cuh",)
+_HEADERS = ("lv_common.cuh", "bitpar_common.cuh")
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # launch function and argument types per library (see each source's
@@ -47,12 +48,16 @@ _SIGNATURES = {
     "lv_lanes": ("lv_lanes_launch", [_P] * 8 + [_I] * 4 + [_F] * 4
                  + [_P] * 6),
     "bitpar_packed": ("bitpar_packed_launch",
-                      [_P, _I, _P, _I, _P, _I, _I, _I, _P, _P]),
+                      [_P, _I, _P, _I, _P] + [_I] * 6 + [_P, _P]),
     "lv_cigar": ("lv_cigar_launch", [_P] * 7 + [_I] * 4 + [_F] * 4
                  + [_P] * 11),
+    "bitpar_rows": ("bitpar_rows_launch", [_P, _I, _P, _I, _P] + [_I] * 3
+                    + [_P, _P]),
 }
 
-LAUNCHES = {"K1_lv_lanes": 0, "K2_bitpar_packed": 0, "K3_lv_cigar": 0}
+# K2 counts its forward (prefilter) and its rescue launches apart
+LAUNCHES = {"K1_lv_lanes": 0, "K2_bitpar_packed": 0, "K2_bitpar_rescue": 0,
+            "K3_lv_cigar": 0, "K4_bitpar_rows": 0}
 _LOCK = threading.Lock()
 _LAUNCHERS: dict = {}
 

@@ -104,14 +104,72 @@ def test_k2_matches_plain(card, P, off):
     assert (want <= 8).any()
 
 
-def test_k2_refuses_rescue_forms(card):
-    pat = torch.zeros((4, 50), dtype=torch.uint8, device=card)
-    w = torch.zeros((4, 10), dtype=torch.int32, device=card)
-    tl = torch.full((4,), 60, dtype=torch.int32, device=card)
-    for flag in ("reverse", "free_start", "track_pos"):
-        with pytest.raises(NotImplementedError):
-            bitpar.bitpar_distance_words(pat, w, tl, P=50, TXT=60,
-                                         packed_off=4, **{flag: True})
+FLAGS = [(r, f, tr) for r in (False, True) for f in (False, True)
+         for tr in (False, True)]
+
+
+@pytest.mark.parametrize("P,TXT,off", [(100, 1084, 0), (37, 300, 5)])
+@pytest.mark.parametrize("reverse,free_start,track_pos", FLAGS)
+def test_k2_every_form_matches_plain(card, P, TXT, off, reverse, free_start,
+                                     track_pos):
+    """K2 in each (reverse, free_start, track_pos) form, the mate rescue's
+    shape first, against the plain version on the scanned columns."""
+    rng = np.random.default_rng(P + 8 * reverse + 4 * free_start + track_pos)
+    B = 4096
+    NW = (off + TXT + 7) // 8 + 1
+    codes = rng.integers(0, 4, (B, NW * 8), dtype=np.uint8)
+    codes[rng.random(codes.shape) < 0.002] = 5
+    pats = rng.integers(0, 4, (B, P), dtype=np.uint8)
+    pats[rng.random((B, P)) < 0.01] = 4
+    for i in range(0, B, 2):                   # the pattern planted, edited
+        seg = pats[i] % 4
+        flip = rng.random(P) < 0.04
+        seg[flip] = (seg[flip] + 1) % 4
+        s = (off + int(rng.integers(0, TXT - P)) if free_start
+             else off + TXT - P if reverse else off)
+        codes[i, s:s + P] = seg[::-1] if reverse else seg
+    words = pack_genome_4bit(codes.reshape(-1))[:B * NW].reshape(B, NW)
+    t_len = rng.integers(TXT // 2, TXT + 1, B).astype(np.int32)
+    pat, w = torch.from_numpy(pats).to(card), u32.from_numpy(words, card)
+    tl = torch.from_numpy(t_len).to(card)
+    flags = dict(free_start=free_start, track_pos=track_pos)
+    name = ("K2_bitpar_rescue" if reverse or free_start or track_pos
+            else "K2_bitpar_packed")
+    before = kernels.LAUNCHES[name]
+    got = bitpar.bitpar_distance_words(pat, w, tl, P=P, TXT=TXT,
+                                       packed_off=off, reverse=reverse,
+                                       **flags)
+    assert kernels.LAUNCHES[name] == before + 1
+    text = bitpar.unpack_words(w)[:, off:off + TXT]
+    want = bitpar.bitpar_distance_plain(
+        pat, text.flip(1) if reverse else text, tl, P=P, **flags)
+    assert torch.equal(got, want)
+    dist = want >> 12 if track_pos else want
+    assert (dist <= 8).any() and (dist > 8).any()
+
+
+@pytest.mark.parametrize("track_pos,free_start", [
+    (False, False), (True, False), (False, True), (True, True)])
+def test_k4_matches_plain(card, track_pos, free_start):
+    """K4 at the stringz shape (P = 100, TXT = 131), codes >= 4 and the
+    padding byte 255 included."""
+    rng = np.random.default_rng(40 + 2 * track_pos + free_start)
+    B, P, TXT = 16384, 100, 131
+    pats = rng.integers(0, 4, (B, P), dtype=np.uint8)
+    text = rng.integers(0, 4, (B, TXT), dtype=np.uint8)
+    half = rng.random(B) < 0.5
+    text[half, 7:7 + P] = pats[half]
+    text[half, rng.integers(7, 7 + P, int(half.sum()))] ^= 1
+    text[rng.random((B, TXT)) < 0.01] = 4
+    text[:64, 120:] = 255
+    t_len = rng.integers(P, TXT + 1, B).astype(np.int32)
+    to = lambda a: torch.from_numpy(a).to(card)
+    kw = dict(P=P, track_pos=track_pos, free_start=free_start)
+    before = kernels.LAUNCHES["K4_bitpar_rows"]
+    got = bitpar.bitpar_distance(to(pats), to(text), to(t_len), **kw)
+    assert kernels.LAUNCHES["K4_bitpar_rows"] == before + 1
+    want = bitpar.bitpar_distance_plain(to(pats), to(text), to(t_len), **kw)
+    assert torch.equal(got, want)
 
 
 @pytest.mark.parametrize("e_max,W,tables", [(31, 128, True), (5, 32, True),
@@ -173,3 +231,28 @@ def test_aligner_on_card_equals_cpu(card):
                                        err_msg=k)
         else:
             np.testing.assert_array_equal(got[k], v, err_msg=k)
+
+
+def test_paired_aligner_on_card_equals_cpu(card):
+    """The paired engine on the card (K1, K2 in both forms) against the
+    same engine on the CPU, with end 1 of some pairs seedless so the mate
+    rescue places it."""
+    from snap_rnaseq_tpu_torch.models.paired import PairedAligner
+    from snap_rnaseq_tpu_torch.utils.synth_genome import wgsim_pairs
+    codes = hg_like_genome(300_000, seed=4)
+    index = build_index(genome_from_codes(codes), seed_len=20)
+    r0, q0, r1, q1, _, _ = wgsim_pairs(codes, 256, seed=2)
+    for i in range(0, 256, 8):                     # no exact 20-mer left
+        r1[i, 5::17] = (r1[i, 5::17] + 1) % 4
+    kernels.reset_launches()
+    got = PairedAligner(index, device=card).align_batch(r0, q0, r1, q1)
+    for name in ("K1_lv_lanes", "K2_bitpar_packed", "K2_bitpar_rescue"):
+        assert kernels.LAUNCHES[name] > 0, name
+    want = PairedAligner(index, device="cpu").align_batch(r0, q0, r1, q1)
+    for k, v in want.items():
+        if v.dtype == np.float32:
+            np.testing.assert_allclose(got[k], v, rtol=1e-5, atol=1e-5,
+                                       err_msg=k)
+        else:
+            np.testing.assert_array_equal(got[k], v, err_msg=k)
+    assert int(want["n_rescued1"]) > 0

@@ -131,6 +131,6 @@ def test_not_ported_forms_raise(golden):
                  ["single", golden["idx"], golden["fq"], "-o", "x.sam",
                   "-so"],
                  ["paired", golden["idx"], golden["fq"], golden["fq"], "-o",
-                  "x.sam"]):
+                  "x.bam"]):
         with pytest.raises(SystemExit, match="not yet ported"):
             port_cli(argv)
