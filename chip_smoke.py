@@ -12,10 +12,10 @@ failure; nothing is caught.
    power limit.
 2. Kernel checks: K1 (LV-lanes), K2 (packed bitpar, forward and every
    mate-rescue form), K3 (LV-CIGAR) and K4 (bitpar over code rows) each
-   against its plain PyTorch version on the card, on random edit cases at
-   the paths' shapes (K1 also at the rescue's e_max 17 and free 0 / free =
-   read length rows); integers must be bit-identical and log-probabilities
-   within rtol/atol 1e-5.  Times kernel and plain version with CUDA events.
+   against its plain PyTorch version on the card, on random edit cases
+   that reach the edges (clipped texts, random k, pad codes, K1 at the
+   rescue's e_max 17 with free 0 / free = read length rows); integers
+   must be bit-identical and log-probabilities within rtol/atol 1e-5.
 3. Golden: tests/test_golden.py's and tests/test_golden_paired_rna.py's
    datasets through the port's `index` + `single` and `index` + `paired`
    CLI on the card must reproduce tests/golden/single_100bp.sam and
@@ -36,7 +36,15 @@ failure; nothing is caught.
    for pairs also the pair-found share and the rescued ends.
 5. stringz: the port's tools/stringz at its defaults on the card; K4 must
    have launched.
-6. Prints the kernels line, the card line, and last the result line.
+6. Path shapes: during each main path's run (4a, 4b, 5) every call of a
+   kernel wrapper is counted by its argument shapes, and the first call of
+   each shape is recorded with a copy of its inputs.  Each recorded call
+   is re-run on those inputs against the plain version (same tolerances)
+   and both are timed with CUDA events; the bound is computed from the
+   same inputs.
+7. Prints the kernels line (each kernel's times are means per launch over
+   the call shapes of the path whose launches it reports: paired for K1,
+   K2 and K3, stringz for K4), the card line, and last the result line.
 """
 import contextlib
 import functools
@@ -169,8 +177,9 @@ def edit_cases(rng, B, P, T, n_edits_max, filler=True):
 # ---------------------------------------------------------------- phase 2
 
 def check_k1(dev, rng):
-    """K1 at score_phase's shape: P = 100, T = read_len + e_max = 116,
-    e_max = 16, free prefixes, f32 quality rows."""
+    """K1 on edge cases at the single path's width: P = 100, T = 116,
+    e_max = 16, random k and free prefixes, clipped text windows, f32
+    quality rows."""
     import torch
     from snap_rnaseq_tpu_torch.ops import lv
     from snap_rnaseq_tpu_torch.ops.lv_cuda import lv_lanes
@@ -192,27 +201,13 @@ def check_k1(dev, rng):
     for f in ("distance", "e_final", "d_final", "net_indel"):
         assert_same(f"K1 {f}", getattr(got, f), getattr(want, f))
     err = logp_err("K1", got.log_prob, want.log_prob)
-    ms = time_ms(lambda: lv_lanes(*args, fr, e_max=E), 20)
-    plain_ms = time_ms(lambda: lv._lv_distance_plain(*args, fr, e_max=E), 3)
-    # work this data needs: the DP levels each row ran (to the winning
-    # level, or to k when none wins); bytes: inputs once (pattern, text,
-    # f32 qualities, four i32 vectors) + 5 outputs
-    dist = want.distance.cpu().numpy()
-    levels = np.where(dist >= 0, want.e_final.cpu().numpy(),
-                      np.maximum(np.minimum(k, E), 1))
-    nbytes = B * (P + T + 4 * P + 16) + B * 20
-    b_ms, b_by = bound(nbytes, lv_ops(levels, P))
-    return dict(name="K1_lv_lanes", route="cuda",
-                source="snap_rnaseq_tpu_torch/csrc/lv_lanes.cu",
-                replaces="snap_rnaseq_tpu/ops/lv_pallas.py:374",
-                max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
-                bound_by=b_by, library_ms=None, rows=B,
-                found=int((dist >= 0).sum()))
+    return dict(name="K1_lv_lanes", rows=B, max_abs_err=err,
+                found=int((want.distance >= 0).sum()))
 
 
 def check_k2(dev, rng):
-    """K2 at the prefilter's shape: 256 reads x 128 candidates, P = 100,
-    TXT = 116, packed_off = 16, 18 packed words per row."""
+    """K2's forward form on edge cases at the single path's width: P =
+    100, TXT = 116, packed_off = 16, 18 packed words per row, pad codes."""
     import torch
     from snap_rnaseq_tpu_torch.ops import bitpar
     from snap_rnaseq_tpu_torch.ops import u32
@@ -233,24 +228,15 @@ def check_k2(dev, rng):
     want = bitpar.bitpar_distance_plain(
         pat, bitpar.unpack_words(w)[:, OFF:OFF + TXT], tl, P=P)
     assert_same("K2 distance", got, want)
-    ms = time_ms(lambda: bitpar.bitpar_packed(pat, w, tl, **kw), 20)
-    plain_ms = time_ms(lambda: bitpar.bitpar_distance_plain(
-        pat, bitpar.unpack_words(w)[:, OFF:OFF + TXT], tl, P=P), 3)
-    nbytes = B * (P + 4 * NW + 4) + B * 4
-    b_ms, b_by = bound(nbytes, bitpar_ops(B, TXT, P))
-    return dict(name="K2_bitpar_packed", route="cuda",
-                source="snap_rnaseq_tpu_torch/csrc/bitpar_packed.cu",
-                replaces="snap_rnaseq_tpu/ops/bitpar.py:69",
-                max_abs_err=0.0, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
-                bound_by=b_by, library_ms=None, rows=B,
+    return dict(name="K2_bitpar_packed", rows=B, max_abs_err=0.0,
                 within_e_max=int((want <= 16).sum()))
 
 
 def check_k3(dev, rng):
-    """K3 at the CIGAR path's shape (io/sam.py): pattern and text rows of
-    the read length, texts no longer than their reads, e_max = 31, k = 30,
-    the CIGAR diagonal order.  Timed as the path calls it, without the
-    L/A tables; the tables are checked once more with tables=True."""
+    """K3 at the CIGAR paths' width (io/sam.py, io/bulk.py): pattern and
+    text rows of the read length, texts no longer than their reads, e_max
+    = 31, k = 30, the CIGAR diagonal order; without the L/A tables, then
+    once more with tables=True."""
     import torch
     from snap_rnaseq_tpu_torch.ops import lv
     from snap_rnaseq_tpu_torch.ops.lv_cuda import lv_cigar
@@ -271,21 +257,7 @@ def check_k3(dev, rng):
     full = lv_cigar(*args, None, e_max=E, tables=True)
     for f in ("L", "A", "acts", "matched", "start_run"):
         assert_same(f"K3 tables {f}", getattr(full, f), getattr(want, f))
-    ms = time_ms(lambda: lv_cigar(*args, None, e_max=E), 20)
-    plain_ms = time_ms(lambda: lv._lv_distance_plain(
-        *args, None, None, e_max=E, cigar_order=True, keep_tables=True), 3)
-    # work: levels run (to the winning level, or to k); bytes: pattern,
-    # text, three i32 vectors in; six scalars and the (acts, matched)
-    # script out
-    dist = want.distance.cpu().numpy()
-    levels = np.where(dist >= 0, want.e_final.cpu().numpy(), E - 1)
-    nbytes = B * (2 * P + 12) + B * (24 + 2 * E * 4)
-    b_ms, b_by = bound(nbytes, lv_ops(levels, P))
-    return dict(name="K3_lv_cigar", route="cuda",
-                source="snap_rnaseq_tpu_torch/csrc/lv_cigar.cu",
-                replaces="snap_rnaseq_tpu/ops/lv_pallas.py:90",
-                max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
-                bound_by=b_by, library_ms=None, rows=B,
+    return dict(name="K3_lv_cigar", rows=B, max_abs_err=err,
                 indel_rows=int((want.net_indel != 0).sum()))
 
 
@@ -314,14 +286,8 @@ def check_k1_rescue(dev, rng):
     head = want.distance[C:]
     if bool((head != 0).any()) or bool((want.log_prob[C:] != 0).any()):
         raise AssertionError("K1 rescue: free = P rows are not 0 / 0")
-    ms = time_ms(lambda: lv_lanes(*args, fr, e_max=E), 20)
-    plain_ms = time_ms(lambda: lv._lv_distance_plain(*args, fr, e_max=E), 3)
-    dist = want.distance.cpu().numpy()
-    levels = np.where(dist >= 0, want.e_final.cpu().numpy(), E)
-    b_ms, b_by = bound(B * (P + T + 4 * P + 16) + B * 20, lv_ops(levels, P))
-    return dict(name="K1_lv_lanes (rescue, e_max 17)", max_abs_err=err,
-                ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
-                rows=B, found=int((dist[:C] >= 0).sum()))
+    return dict(name="K1_lv_lanes (rescue, e_max 17)", rows=B,
+                max_abs_err=err, found=int((want.distance[:C] >= 0).sum()))
 
 
 def bitpar_ops(B, TXT, P):
@@ -350,22 +316,21 @@ def packed_cases(rng, B, P, TXT, off, reverse, free_start):
              else off + TXT - P if reverse else off)
         codes[i, s:s + P] = seg[i]
     words = pack_genome_4bit(codes.reshape(-1))[:B * NW].reshape(B, NW)
-    return pats, words, NW
+    return pats, words
 
 
 def check_k2_rescue(dev, rng):
-    """K2's mate-rescue form at the rescue's shape: 1024 pairs x 2 mate
-    candidates x 2 windows = 4096 rows per end, P = 100, TXT = WLEN =
-    1,084 at the paired defaults, packed_off 0, reverse + free_start +
-    track_pos.  Then the five other non-forward flag combinations and the
-    forward one at a small size, bit-identical only."""
+    """K2 in every flag form: the seven others at a small size, then the
+    mate-rescue form at the rescue's shape: 1024 pairs x 2 mate candidates
+    x 2 windows = 4096 rows per end, P = 100, TXT = WLEN = 1,084 at the
+    paired defaults, packed_off 0, reverse + free_start + track_pos."""
     import torch
     from snap_rnaseq_tpu_torch.ops import bitpar, u32
     to = lambda a: torch.from_numpy(a).to(dev)
 
     def case(B, P, TXT, off, reverse, free_start, track_pos):
-        pats, words, NW = packed_cases(rng, B, P, TXT, off, reverse,
-                                       free_start)
+        pats, words = packed_cases(rng, B, P, TXT, off, reverse,
+                                   free_start)
         pat, w = to(pats), u32.from_numpy(words, dev)
         tl = to(np.full(B, TXT, np.int32))
         kw = dict(P=P, TXT=TXT, packed_off=off, reverse=reverse,
@@ -381,30 +346,24 @@ def check_k2_rescue(dev, rng):
         want = plain()
         assert_same(f"K2 form r={reverse} f={free_start} t={track_pos}",
                     got, want)
-        return pat, w, tl, kw, plain, NW, want
+        return want
 
     for r in (False, True):
         for f in (False, True):
             for t in (False, True):
                 if (r, f, t) != (True, True, True):
                     case(2048, 37, 300, 5, r, f, t)
-    B, P, TXT = 4096, READ_LEN, 1084
-    pat, w, tl, kw, plain, NW, want = case(B, P, TXT, 0, True, True, True)
-    ms = time_ms(lambda: bitpar.bitpar_packed(pat, w, tl, **kw), 20)
-    plain_ms = time_ms(plain, 3)
-    b_ms, b_by = bound(B * (P + 4 * NW + 4) + B * 4, bitpar_ops(B, TXT, P))
-    return dict(name="K2_bitpar_rescue", route="cuda",
-                source="snap_rnaseq_tpu_torch/csrc/bitpar_packed.cu",
-                replaces="snap_rnaseq_tpu/ops/bitpar.py:69",
-                max_abs_err=0.0, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
-                bound_by=b_by, library_ms=None, rows=B,
+    B = 4096
+    want = case(B, READ_LEN, 1084, 0, True, True, True)
+    return dict(name="K2_bitpar_rescue", rows=B, max_abs_err=0.0,
                 within_e_max=int(((want >> 12) <= 17).sum()))
 
 
 def check_k4(dev, rng):
-    """K4 at the stringz tool's shape: 16,384 rows, P = 100, TXT = 131 u8
-    code rows, codes >= 4 and the padding byte 255 included; the plain
-    (global-start) form the tool times, then free_start and track_pos."""
+    """K4 at the stringz tool's width: 16,384 rows, P = 100, TXT = 131 u8
+    code rows, codes >= 4, the padding byte 255 and t_len < TXT included;
+    the plain (global-start) form the tool runs, then free_start and
+    track_pos."""
     import torch
     from snap_rnaseq_tpu_torch.ops import bitpar
     B, P, TXT = 16_384, READ_LEN, READ_LEN + 31
@@ -420,17 +379,201 @@ def check_k4(dev, rng):
         want = bitpar.bitpar_distance_plain(pat, txt, tl, P=P, **flags)
         assert_same(f"K4 {flags}", got, want)
     want = bitpar.bitpar_distance_plain(pat, txt, tl, P=P)
-    ms = time_ms(lambda: bitpar.bitpar_rows(pat, txt, tl, P=P), 20)
-    plain_ms = time_ms(lambda: bitpar.bitpar_distance_plain(
-        pat, txt, tl, P=P), 3)
-    b_ms, b_by = bound(B * (P + TXT + 4) + B * 4, bitpar_ops(B, TXT, P))
-    return dict(name="K4_bitpar_rows", route="cuda",
-                source="snap_rnaseq_tpu_torch/csrc/bitpar_rows.cu",
-                replaces="snap_rnaseq_tpu/ops/bitpar.py:69 (unpacked, "
-                         "call :179)",
-                max_abs_err=0.0, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
-                bound_by=b_by, library_ms=None, rows=B,
+    return dict(name="K4_bitpar_rows", rows=B, max_abs_err=0.0,
                 within_6=int((want <= 6).sum()))
+
+
+# ---------------------------------------------------------------- path calls
+
+# the kernel wrappers, by the module attribute their callers look up; at
+# most this many call shapes are recorded per run (a path makes under 30)
+MAX_RECORDED_SHAPES = 64
+WRAPPERS = (("lv_cuda", "lv_lanes"), ("lv_cuda", "lv_cigar"),
+            ("bitpar", "bitpar_packed"), ("bitpar", "bitpar_rows"))
+KERNEL_INFO = {   # name: (source, the TPU kernel it replaces)
+    "K1_lv_lanes": ("snap_rnaseq_tpu_torch/csrc/lv_lanes.cu",
+                    "snap_rnaseq_tpu/ops/lv_pallas.py:374"),
+    "K2_bitpar_packed": ("snap_rnaseq_tpu_torch/csrc/bitpar_packed.cu",
+                         "snap_rnaseq_tpu/ops/bitpar.py:69"),
+    "K2_bitpar_rescue": ("snap_rnaseq_tpu_torch/csrc/bitpar_packed.cu",
+                         "snap_rnaseq_tpu/ops/bitpar.py:69"),
+    "K3_lv_cigar": ("snap_rnaseq_tpu_torch/csrc/lv_cigar.cu",
+                    "snap_rnaseq_tpu/ops/lv_pallas.py:90"),
+    "K4_bitpar_rows": ("snap_rnaseq_tpu_torch/csrc/bitpar_rows.cu",
+                       "snap_rnaseq_tpu/ops/bitpar.py:69 (unpacked, call "
+                       ":179)"),
+}
+
+
+def kernel_of_call(attr, a):
+    if attr == "bitpar_packed":
+        rescue = a["reverse"] or a["free_start"] or a["track_pos"]
+        return "K2_bitpar_rescue" if rescue else "K2_bitpar_packed"
+    return {"lv_lanes": "K1_lv_lanes", "lv_cigar": "K3_lv_cigar",
+            "bitpar_rows": "K4_bitpar_rows"}[attr]
+
+
+def host_copy(t):
+    import torch
+    h = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+    return h.copy_(t, non_blocking=True)
+
+
+@contextlib.contextmanager
+def recorded_calls():
+    """Wraps the kernel wrappers for one run of a main path.  The first
+    call of each distinct argument shape is recorded with a copy of its
+    inputs, and every call is counted under its shape.  Yields {key:
+    {"kernel", "fn", "args", "n"}}; the wrappers' own launch counters are
+    untouched.  The copies go to pinned host memory in stream order, so
+    the run neither waits for them nor counts them in its peak device
+    memory; check_path_calls moves them back to the card."""
+    import inspect
+    import threading
+    import torch
+    from snap_rnaseq_tpu_torch.ops import bitpar, lv_cuda
+    mods = dict(lv_cuda=lv_cuda, bitpar=bitpar)
+    calls, saved, lock = {}, [], threading.Lock()
+
+    def wrap(mod, attr):
+        fn = getattr(mod, attr)
+        sig = inspect.signature(fn)
+
+        def shim(*args, **kw):
+            b = sig.bind(*args, **kw)
+            b.apply_defaults()
+            a = b.arguments
+            key = (attr,) + tuple(
+                (k, (tuple(v.shape), str(v.dtype))
+                 if isinstance(v, torch.Tensor) else v) for k, v in a.items())
+            with lock:
+                rec = calls.get(key)
+                if rec is None and len(calls) < MAX_RECORDED_SHAPES:
+                    rec = calls[key] = dict(
+                        kernel=kernel_of_call(attr, a), fn=fn, n=0,
+                        args={k: host_copy(v) if isinstance(v, torch.Tensor)
+                              else v for k, v in a.items()})
+                if rec is not None:
+                    rec["n"] += 1
+            return fn(*args, **kw)
+        setattr(mod, attr, shim)
+        saved.append((mod, attr, fn))
+
+    for m, attr in WRAPPERS:
+        wrap(mods[m], attr)
+    try:
+        yield calls
+    finally:
+        for mod, attr, fn in saved:
+            setattr(mod, attr, fn)
+
+
+def _plain_and_work(kernel, a):
+    """The plain version of one recorded call, its comparison with the
+    kernel's result, and the work this call's data needs: (plain fn,
+    compare(got, want) -> max_abs_err, (bytes, operations)(want))."""
+    from snap_rnaseq_tpu_torch.ops import bitpar, lv
+    B, P = a["pattern"].shape
+    if kernel in ("K1_lv_lanes", "K3_lv_cigar"):
+        cigar = kernel == "K3_lv_cigar"
+        E, T = a["e_max"], a["text"].shape[1]
+        q = a["quality"]
+        plain = functools.partial(
+            lv._lv_distance_plain, a["pattern"], a["p_len"], a["text"],
+            a["t_len"], a["k"], q, None if cigar else a["free"], e_max=E,
+            cigar_order=a["cigar_order"], keep_tables=cigar)
+        fields = ("distance", "e_final", "d_final", "net_indel") + (
+            ("acts", "matched", "start_run") if cigar else ())
+
+        def compare(got, want):
+            for f in fields:
+                assert_same(f"{kernel} {f}", getattr(got, f),
+                            getattr(want, f))
+            return logp_err(kernel, got.log_prob, want.log_prob)
+
+        def work(want):
+            # the DP levels each row ran (to the winning level, or to k
+            # when none wins); inputs once (pattern, text, quality rows,
+            # i32 vectors), outputs once (five scalars; K3 also the start
+            # run and the (acts, matched) script)
+            dist = want.distance.cpu().numpy()
+            k = a["k"].cpu().numpy()
+            levels = np.where(dist >= 0, want.e_final.cpu().numpy(),
+                              np.maximum(np.minimum(k, E), 1))
+            q_bytes = 0 if q is None else q.element_size() * P
+            n_vec = 3 + (not cigar and a["free"] is not None)
+            out = 24 + 8 * E if cigar else 20
+            return B * (P + T + q_bytes + 4 * n_vec + out), lv_ops(levels, P)
+        return plain, compare, work
+
+    flags = dict(track_pos=a["track_pos"], free_start=a["free_start"])
+    if kernel == "K4_bitpar_rows":
+        TXT = a["text"].shape[1]
+        plain = functools.partial(bitpar.bitpar_distance_plain, a["pattern"],
+                                  a["text"], a["t_len"], P=P, **flags)
+        in_bytes = B * (P + TXT + 4)
+    else:
+        TXT, off, NW = a["TXT"], a["packed_off"], a["words"].shape[1]
+
+        def plain():
+            text = bitpar.unpack_words(a["words"])[:, off:off + TXT]
+            return bitpar.bitpar_distance_plain(
+                a["pattern"], text.flip(1) if a["reverse"] else text,
+                a["t_len"], P=P, **flags)
+        in_bytes = B * (P + 4 * NW + 4)
+
+    def compare(got, want):
+        assert_same(kernel, got, want)
+        return 0.0
+    return plain, compare, lambda want: (in_bytes + 4 * B,
+                                         bitpar_ops(B, TXT, P))
+
+
+def call_shape(a):
+    """[rows, P, text columns, e_max] for LV, [rows, P, TXT, packed_off]
+    for K2, [rows, P, TXT] for K4."""
+    B, P = (int(x) for x in a["pattern"].shape)
+    if "e_max" in a:
+        return [B, P, int(a["text"].shape[1]), a["e_max"]]
+    if "TXT" in a:
+        return [B, P, a["TXT"], a["packed_off"]]
+    return [B, P, int(a["text"].shape[1])]
+
+
+def check_path_calls(path, calls):
+    """Every call shape recorded on a main path, re-run on its recorded
+    inputs: the kernel against its plain version (bit-identical integers,
+    log-probabilities within TOL) and both timed with CUDA events.  Per
+    kernel, the times and bounds are means per launch over the path's
+    calls, each shape weighted by how often the path launched it."""
+    import torch
+    per = {}
+    for rec in calls.values():
+        kernel = rec["kernel"]
+        a = {k: v.cuda() if isinstance(v, torch.Tensor) else v
+             for k, v in rec["args"].items()}
+        plain, compare, work = _plain_and_work(kernel, a)
+        want = plain()
+        err = compare(rec["fn"](**a), want)
+        ms = time_ms(lambda: rec["fn"](**a), 20)
+        plain_ms = time_ms(plain, 3)
+        b_ms, b_by = bound(*work(want))
+        shape = call_shape(a)
+        log(f"{path} {kernel} {shape} x{rec['n']}: kernel {ms:.4f} ms, "
+            f"plain {plain_ms:.4f} ms, bound {b_ms:.5f} ms ({b_by}), "
+            f"max_abs_err {err}")
+        per.setdefault(kernel, []).append(
+            (rec["n"], ms, plain_ms, b_ms, b_by, err, shape))
+    out = {}
+    for kernel, rows in per.items():
+        n = sum(r[0] for r in rows)
+        mean = lambda i: sum(r[0] * r[i] for r in rows) / n
+        by = max(rows, key=lambda r: r[0] * r[3])[4]
+        out[kernel] = dict(calls=n, ms=mean(1), plain_ms=mean(2),
+                           bound_ms=mean(3), bound_by=by,
+                           max_abs_err=max(r[5] for r in rows),
+                           shapes=[r[6] + [r[0]] for r in rows])
+    return out
 
 
 # ---------------------------------------------------------------- phase 3
@@ -604,22 +747,25 @@ def real_index(tmp, n_bases):
 def counted_cli(argv, path):
     """One CLI run on the card with the launch counters zeroed just before
     and read just after; raises if a kernel of `path` did not launch.
-    Returns (stdout, launches, wall s, peak device bytes)."""
+    The kernel calls of the run are recorded (recorded_calls).  Returns
+    (stdout, launches, calls, wall s, peak device bytes)."""
     import torch
     from snap_rnaseq_tpu_torch.ops import kernels as kx
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    kx.reset_launches()                       # zero just before the run
-    t0 = time.time()
-    stdout = run_cli(argv)
-    torch.cuda.synchronize()
-    wall_s = time.time() - t0
-    launches = dict(kx.LAUNCHES)              # read just after
+    with recorded_calls() as calls:
+        kx.reset_launches()                   # zero just before the run
+        t0 = time.time()
+        stdout = run_cli(argv)
+        torch.cuda.synchronize()
+        wall_s = time.time() - t0
+        launches = dict(kx.LAUNCHES)          # read just after
     missing = [k for k in path if launches[k] <= 0]
     if missing:
         raise AssertionError(f"kernels not launched on the {argv[0]} path: "
                              f"{missing}")
-    return stdout, launches, wall_s, torch.cuda.max_memory_allocated()
+    return (stdout, launches, calls, wall_s,
+            torch.cuda.max_memory_allocated())
 
 
 def perf_row(perf):
@@ -648,7 +794,7 @@ def single_real_phase(tmp, codes, idx, index_s, n_reads, batch):
                     + b"\n+\n" + b"I" * READ_LEN + b"\n")
     out = os.path.join(tmp, "out.sam")
     perf = os.path.join(tmp, "perf.tsv")
-    stdout, launches, wall_s, peak = counted_cli(
+    stdout, launches, calls, wall_s, peak = counted_cli(
         ["single", idx, fq, "-o", out, "-bs", str(batch), "--device",
          "cuda", "-pf", perf], SINGLE_PATH)
     total, align_s = perf_row(perf)
@@ -674,7 +820,7 @@ def single_real_phase(tmp, codes, idx, index_s, n_reads, batch):
     if res["at_origin_share"] < 0.8:
         raise AssertionError(f"only {res['at_origin_share']:.3f} of reads "
                              "placed at their origin")
-    return res
+    return res, calls
 
 
 def paired_real_phase(tmp, codes, idx, index_s, n_pairs, batch):
@@ -694,7 +840,7 @@ def paired_real_phase(tmp, codes, idx, index_s, n_pairs, batch):
                      + q1[i].tobytes() + b"\n")
     out = os.path.join(tmp, "paired.sam")
     perf = os.path.join(tmp, "perf_p.tsv")
-    stdout, launches, wall_s, peak = counted_cli(
+    stdout, launches, calls, wall_s, peak = counted_cli(
         ["paired", idx, fq1, fq2, "-o", out, "-bs", str(batch), "--device",
          "cuda", "-pf", perf], PAIRED_PATH)
     total, align_s = perf_row(perf)
@@ -724,7 +870,7 @@ def paired_real_phase(tmp, codes, idx, index_s, n_pairs, batch):
     if res["at_origin_share"] < 0.8:
         raise AssertionError(f"only {res['at_origin_share']:.3f} of ends "
                              "placed at their origin")
-    return res
+    return res, calls
 
 
 # device kernels of the port, by the name the profiler gives them
@@ -830,20 +976,21 @@ def paired_engine_phase(idx, r0, q0, r1, q1, batch):
 
 def stringz_phase():
     """The stringz tool at its defaults on the card, counters zeroed just
-    before and read just after."""
+    before and read just after, its kernel calls recorded."""
     from snap_rnaseq_tpu_torch.ops import kernels as kx
     from snap_rnaseq_tpu_torch.tools import stringz
-    kx.reset_launches()
     buf = io.StringIO()
-    with contextlib.redirect_stdout(buf):
-        rc = stringz.main([])
-    launches = dict(kx.LAUNCHES)
+    with recorded_calls() as calls:
+        kx.reset_launches()
+        with contextlib.redirect_stdout(buf):
+            rc = stringz.main([])
+        launches = dict(kx.LAUNCHES)
     if rc != 0:
         raise RuntimeError(f"stringz returned {rc}")
     missing = [k for k in STRINGZ_PATH if launches[k] <= 0]
     if missing:
         raise AssertionError(f"kernels not launched by stringz: {missing}")
-    return buf.getvalue().splitlines(), launches
+    return buf.getvalue().splitlines(), launches, calls
 
 
 # ---------------------------------------------------------------- main
@@ -874,43 +1021,49 @@ def main():
               check_k2(dev, rng), check_k2_rescue(dev, rng),
               check_k3(dev, rng), check_k4(dev, rng)]
     for c in checks:
-        log(f"{c['name']}: {c['rows']} rows, kernel {c['ms']:.4f} ms, plain "
-            f"{c['plain_ms']:.4f} ms, bound {c['bound_ms']:.5f} ms "
-            f"({c['bound_by']}), max_abs_err {c['max_abs_err']}")
+        log(f"{c['name']}: {c['rows']} rows match the plain version, "
+            f"max_abs_err {c['max_abs_err']}")
 
     with tempfile.TemporaryDirectory() as tmp:
         n_single, n_paired = golden_phase(tmp)
         log(f"golden: {n_single} single and {n_paired} paired SAM lines "
             "identical on the card")
         codes, idx, index_s = real_index(tmp, GENOME_BASES)
-        single = single_real_phase(tmp, codes, idx, index_s,
-                                   N_BATCHES * BATCH, BATCH)
+        single, single_calls = single_real_phase(
+            tmp, codes, idx, index_s, N_BATCHES * BATCH, BATCH)
         log("real size, single: " + json.dumps(single))
-        paired = paired_real_phase(tmp, codes, idx, index_s,
-                                   N_BATCHES * BATCH, BATCH)
+        paired, paired_calls = paired_real_phase(
+            tmp, codes, idx, index_s, N_BATCHES * BATCH, BATCH)
         log("real size, paired: " + json.dumps(paired))
-    lines, sz_launches = stringz_phase()
+    lines, sz_launches, sz_calls = stringz_phase()
     for line in lines:
         log(f"stringz: {line}")
     log(f"stringz launches: {json.dumps(sz_launches)}")
-    log(f"total: {time.time() - t_start:.1f} s")
 
-    # launches: on the paired path (the newest of the main paths) for the
-    # kernels it runs, in the stringz run for K4; every path's counts too
+    # phase 6: every kernel call shape of each main path, on its inputs
     by_path = dict(single=single["launches"], paired=paired["launches"],
                    stringz=sz_launches)
+    at_path = {p: check_path_calls(p, c) for p, c in (
+        ("single", single_calls), ("paired", paired_calls),
+        ("stringz", sz_calls))}
+    log(f"total: {time.time() - t_start:.1f} s")
+
+    # each kernel at the path whose launches it reports: the paired path
+    # (the newest main path) for the kernels it runs, stringz for K4
     kernels = []
-    for c in checks:
-        if "route" not in c:
-            continue
-        name = c["name"]
-        main_path = "stringz" if name in STRINGZ_PATH else "paired"
-        kernels.append({k: c[k] for k in (
-            "name", "route", "source", "replaces")} | dict(
-            launches=by_path[main_path][name],
-            max_abs_err=c["max_abs_err"], ms=c["ms"],
-            plain_ms=c["plain_ms"], bound_ms=c["bound_ms"],
-            bound_by=c["bound_by"], library_ms=c["library_ms"],
+    for name, (source, replaces) in KERNEL_INFO.items():
+        path = "stringz" if name in STRINGZ_PATH else "paired"
+        c = at_path[path][name]
+        if c["calls"] != by_path[path][name]:
+            raise AssertionError(f"{name}: {c['calls']} of the {path} "
+                                 f"path's {by_path[path][name]} launches "
+                                 "were recorded")
+        kernels.append(dict(
+            name=name, route="cuda", source=source, replaces=replaces,
+            launches=by_path[path][name], max_abs_err=c["max_abs_err"],
+            ms=c["ms"], plain_ms=c["plain_ms"], bound_ms=c["bound_ms"],
+            bound_by=c["bound_by"], library_ms=None, path=path,
+            shapes=c["shapes"],
             launches_by_path={p: v[name] for p, v in by_path.items()}))
     print(json.dumps({"kernels": kernels}))
     print(card)

@@ -10,8 +10,7 @@ Two routes, with byte-identical records:
   into (B, L) matrices, the main thread dispatches each block to the
   engine, and a writer thread fetches the results and emits the records
   vectorized.  Each batch's 14 result rows and scalar counters are stacked
-  on the device, and each group of SNAP_TPU_FETCH_GROUP batches (default
-  1) is copied to the host once.
+  on the device and copied to the host once.
 * per-read (everything else, and SNAP_TPU_BULK_IO=0): Read objects through
   a reader thread, the SamRecordBuilder on a writer thread.
 """
@@ -72,14 +71,14 @@ class PairedPipelineOptions:
                               self.min_phred, self.phred_offset)
 
 
-def _pack(out: dict):
-    """One (14, B) int32 block of per-pair rows and one (S,) int32 vector
-    of scalar counters (-1 for a counter the engine does not emit)."""
+def _pack(out: dict) -> torch.Tensor:
+    """One int32 vector: the (14, B) per-pair rows, flattened, then the
+    scalar counters (-1 for a counter the engine does not emit)."""
     rows = torch.stack([out[k].to(torch.int32) for k in PACK_KEYS])
     minus1 = torch.full((), -1, dtype=torch.int32, device=rows.device)
     scal = torch.stack([out[k].to(torch.int32).reshape(()) if k in out
                         else minus1 for k in SCALAR_KEYS])
-    return rows, scal
+    return torch.cat([rows.reshape(-1), scal])
 
 
 class PairedEndPipeline:
@@ -146,23 +145,18 @@ class PairedEndPipeline:
             overflow_pairs = []
             warmed = False
             t0 = time.time()            # reset after the warm-up batch
-            fetch_group = int(os.environ.get("SNAP_TPU_FETCH_GROUP", "1"))
-            pend_meta, pend_pack = [], []
 
-            def bulk_drain(group, packs):
+            def bulk_drain(b0, b1, bad, excl, packed):
                 td = time.time()
-                rows_g = torch.stack([p[0] for p in packs]).cpu().numpy()
-                scal_g = torch.stack([p[1] for p in packs]).cpu().numpy()
+                flat = packed.cpu().numpy()
                 self.wait.device_s += time.time() - td
-                for gi, (b0, b1, bad, excl) in enumerate(group):
-                    rows, scal = rows_g[gi], scal_g[gi]
-                    res = {k: rows[i] for i, k in enumerate(PACK_KEYS)}
-                    for i, k in enumerate(SCALAR_KEYS):
-                        if scal[i] >= 0:
-                            res[k] = scal[i]
-                    _drain_one(b0, b1, bad, excl, res)
-
-            def _drain_one(b0, b1, bad, excl, res):
+                scal = flat[len(flat) - len(SCALAR_KEYS):]
+                rows = flat[:len(flat) - len(SCALAR_KEYS)].reshape(
+                    len(PACK_KEYS), -1)
+                res = {k: rows[i] for i, k in enumerate(PACK_KEYS)}
+                for i, k in enumerate(SCALAR_KEYS):
+                    if scal[i] >= 0:
+                        res[k] = scal[i]
                 stats.truncated_candidates += int(
                     (res["truncated0"] > 0).sum()
                     + (res["truncated1"] > 0).sum())
@@ -228,13 +222,8 @@ class PairedEndPipeline:
                     fetch(self._dispatch(c0, q0, c1, q1))
                     warmed = True
                     t0 = time.time()
-                pend_meta.append((b0, b1, bad, excl))
-                pend_pack.append(_pack(self._dispatch(c0, q0, c1, q1)))
-                if len(pend_meta) >= fetch_group:
-                    writer.submit(bulk_drain, pend_meta, pend_pack)
-                    pend_meta, pend_pack = [], []
-            if pend_meta:
-                writer.submit(bulk_drain, pend_meta, pend_pack)
+                writer.submit(bulk_drain, b0, b1, bad, excl,
+                              _pack(self._dispatch(c0, q0, c1, q1)))
             writer.close()
             stats.total_reads += n_total
             stats.useful_reads += n_useful

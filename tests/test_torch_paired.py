@@ -269,35 +269,6 @@ def _compare_align(got, want):
     assert set(want) == set(got)
 
 
-def test_align_batch_matches_jax_seedless_mate():
-    """tests/test_mate_rescue.py's construction: every 20-mer of end 1
-    carries a substitution, so only the mate rescue can place it."""
-    rng = np.random.default_rng(7)
-    codes = rng.integers(0, 4, 200_000, dtype=np.uint8)
-    index = build_index(genome_from_codes(codes), seed_len=20)
-    pad = int(index.genome.piece_offsets[0])
-    rng = np.random.default_rng(3)
-    starts = [10_000, 50_000, 90_000, 130_000]
-    B, FRAG = len(starts), 300
-    r0 = np.zeros((B, L), np.uint8)
-    r1 = np.zeros((B, L), np.uint8)
-    for i, s in enumerate(starts):
-        r0[i] = codes[s:s + L]
-        end1 = codes[s + FRAG - L:s + FRAG].copy()
-        for p in (5, 22, 39, 56, 73, 90):
-            end1[p] = (end1[p] + 1 + rng.integers(0, 3)) % 4
-        r1[i] = reverse_complement_codes(end1)
-    q = np.full((B, L), ord("I"), np.uint8)
-    want = jp.PairedAligner(index).align_batch(r0, q, r1, q)
-    got = tp.PairedAligner(index, device="cpu").align_batch(r0, q, r1, q)
-    _compare_align(got, want)
-    assert got["pair_found"].all()
-    assert int(got["n_rescued1"]) >= 1
-    for i, s in enumerate(starts):
-        assert int(got["loc1"][i]) == s + FRAG - L + pad
-        assert int(got["score1"][i]) == 6
-
-
 @pytest.fixture(scope="module")
 def golden(tmp_path_factory):
     tmp = str(tmp_path_factory.mktemp("golden_paired"))
@@ -309,17 +280,53 @@ def golden(tmp_path_factory):
     return dict(tmp=tmp, fa=fa, r1=r1, r2=r2, idx=idx)
 
 
-def test_align_batch_matches_jax_on_golden_reads(golden):
+SEEDLESS_STARTS = (10_000, 25_000, 40_000, 52_000)     # within chr1
+FRAG = 300
+
+
+@pytest.fixture(scope="module")
+def aligned(golden):
+    """One batch through both engines (one JAX compile): the golden paired
+    reads, then tests/test_mate_rescue.py's seedless-mate construction on
+    the golden genome's chr1 (every 20-mer of end 1 carries a
+    substitution, so only the mate rescue can place it)."""
     pairs = list(open_paired_read_supplier(golden["r1"], golden["r2"]))
-    b0 = make_batch([p[0] for p in pairs], L, len(pairs))
-    b1 = make_batch([p[1] for p in pairs], L, len(pairs))
+    n = len(pairs)
+    b0 = make_batch([p[0] for p in pairs], L, n)
+    b1 = make_batch([p[1] for p in pairs], L, n)
     index = GenomeIndex.load(golden["idx"])
-    want = jp.PairedAligner(index).align_batch(b0.codes, b0.quals,
-                                               b1.codes, b1.quals)
-    got = tp.PairedAligner(index, device="cpu").align_batch(
-        b0.codes, b0.quals, b1.codes, b1.quals)
-    _compare_align(got, want)
-    assert np.asarray(want["pair_found"]).all()
+    codes = index.genome.codes
+    base = int(index.genome.piece_offsets[0])
+    rng = np.random.default_rng(3)
+    r0 = np.zeros((len(SEEDLESS_STARTS), L), np.uint8)
+    r1 = np.zeros_like(r0)
+    for i, s in enumerate(SEEDLESS_STARTS):
+        r0[i] = codes[base + s:base + s + L]
+        end1 = codes[base + s + FRAG - L:base + s + FRAG].copy()
+        for p in (5, 22, 39, 56, 73, 90):
+            end1[p] = (end1[p] + 1 + rng.integers(0, 3)) % 4
+        r1[i] = reverse_complement_codes(end1)
+    q = np.full(r0.shape, ord("I"), np.uint8)
+    c0, c1 = np.concatenate([b0.codes, r0]), np.concatenate([b1.codes, r1])
+    q0, q1 = np.concatenate([b0.quals, q]), np.concatenate([b1.quals, q])
+    want = jp.PairedAligner(index).align_batch(c0, q0, c1, q1)
+    got = tp.PairedAligner(index, device="cpu").align_batch(c0, q0, c1, q1)
+    return dict(got=got, want=want, n_golden=n, base=base)
+
+
+def test_align_batch_matches_jax_seedless_mate(aligned):
+    got, n = aligned["got"], aligned["n_golden"]
+    _compare_align(got, aligned["want"])
+    assert got["pair_found"][n:].all()
+    assert int(got["n_rescued1"]) >= 1
+    for i, s in enumerate(SEEDLESS_STARTS):
+        assert int(got["loc1"][n + i]) == aligned["base"] + s + FRAG - L
+        assert int(got["score1"][n + i]) == 6
+
+
+def test_align_batch_matches_jax_on_golden_reads(aligned):
+    _compare_align(aligned["got"], aligned["want"])
+    assert np.asarray(aligned["want"]["pair_found"])[:aligned["n_golden"]].all()
 
 
 def test_cli_reproduces_golden_paired_sam(golden):
