@@ -11,40 +11,55 @@ failure; nothing is caught.
    source, all at once); prints the build seconds and the card's name and
    power limit.
 2. Kernel checks: K1 (LV-lanes), K2 (packed bitpar, forward and every
-   mate-rescue form), K3 (LV-CIGAR) and K4 (bitpar over code rows) each
-   against its plain PyTorch version on the card, on random edit cases
-   that reach the edges (clipped texts, random k, pad codes, K1 at the
-   rescue's e_max 17 with free 0 / free = read length rows); integers
-   must be bit-identical and log-probabilities within rtol/atol 1e-5.
+   mate-rescue form), K3 (LV-CIGAR), K4 (bitpar over code rows) and K5
+   (LV-lanes over a next-mismatch table) each against its plain PyTorch
+   version on the card, on random edit cases that reach the edges
+   (clipped texts, random k, pad codes, K1 at the rescue's e_max 17 with
+   free 0 / free = read length rows, K5 at e_max 16 and 17 with free
+   prefixes, also bit for bit against K1); integers must be bit-identical
+   and log-probabilities within rtol/atol 1e-5.
 3. Golden: tests/test_golden.py's and tests/test_golden_paired_rna.py's
-   datasets through the port's `index` + `single` and `index` + `paired`
-   CLI on the card must reproduce tests/golden/single_100bp.sam and
-   tests/golden/paired_100bp.sam (without @PG) byte for byte.
+   datasets through the port's `index` + `single`, `index` + `paired` and
+   `index` + `transcriptome` + RNA `single` CLI on the card must reproduce
+   tests/golden/single_100bp.sam, tests/golden/paired_100bp.sam and
+   tests/golden/rna_single_100bp.sam (without @PG) byte for byte; the RNA
+   one twice, under SNAP_TPU_LV_LANES=bits (K1 launches, K5 does not) and
+   =onehot (K5 launches, K1 does not).
 4. Real size: `index` on a 64 Mb hg-like genome, then on that one index
    a. `single -bs 1024` on 16 batches of simulated 100 bp reads
       (substitutions, indels, both strands);
    b. `paired -bs 1024` on 16 batches of 1024 simulated pairs (insert
-      200-400, 1% substitutions).
+      200-400, 1% substitutions);
+   c. RNA: an annotation made from the seed at the human annotation's
+      gene density (about 1,300 genes, 4 isoforms each, 3-12 exons of
+      80-400 bp), its transcriptome built by `transcriptome`, then RNA
+      `single -bs 1024` on 16 batches of reads (80% cut from transcripts,
+      20% genomic) and RNA `paired -bs 1024` on 16 batches of 1024 pairs
+      from transcript fragments of 200-400 bases at the default -tmh
+      1000; RNA `single` once more under SNAP_TPU_LV_LANES=onehot, whose
+      SAM must equal the default run's.
    The launch counters are zeroed just before each run and read just
    after; each kernel of that path must have launched.  Prints the rate,
    the aligned share, the share placed at the true origin (checked), the
    index-build seconds, peak device memory and the pipeline's wait
-   profile.  Then each engine alone on the same index and reads
-   (SingleAligner / PairedAligner.align_batch_device + the fetch): wall ms
-   per batch, and under torch.profiler the device's busy ms, its idle
-   share, device operations and the hand-written kernels' ms per batch;
-   for pairs also the pair-found share and the rescued ends.
+   profile (RNA: also the share of records with an N, the transcriptome
+   build seconds).  Then each DNA engine alone on the same index and
+   reads (SingleAligner / PairedAligner.align_batch_device + the fetch):
+   wall ms per batch, and under torch.profiler the device's busy ms, its
+   idle share, device operations and the hand-written kernels' ms per
+   batch; for pairs also the pair-found share and the rescued ends.
 5. stringz: the port's tools/stringz at its defaults on the card; K4 must
    have launched.
-6. Path shapes: during each main path's run (4a, 4b, 5) every call of a
-   kernel wrapper is counted by its argument shapes, and the first call of
-   each shape is recorded with a copy of its inputs.  Each recorded call
-   is re-run on those inputs against the plain version (same tolerances)
-   and both are timed with CUDA events; the bound is computed from the
-   same inputs.
+6. Path shapes: during each main path's run (4a, 4b, 4c, 5) every call of
+   a kernel wrapper is counted by its argument shapes, and the first call
+   of each shape is recorded with a copy of its inputs.  Each recorded
+   call is re-run on those inputs against the plain version (same
+   tolerances) and both are timed with CUDA events; the bound is computed
+   from the same inputs.
 7. Prints the kernels line (each kernel's times are means per launch over
    the call shapes of the path whose launches it reports: paired for K1,
-   K2 and K3, stringz for K4), the card line, and last the result line.
+   K2 and K3, stringz for K4, RNA single under onehot for K5), the card
+   line, and last the result line.
 """
 import contextlib
 import functools
@@ -98,17 +113,51 @@ def time_ms(fn, reps):
     return start.elapsed_time(end) / reps
 
 
+def device_ms(fn, reps):
+    """Mean device milliseconds per call, the host's issue hidden: a spin
+    kernel (torch.cuda._sleep) holds the stream while the host queues all
+    `reps` calls behind it, so the CUDA events time the calls back to
+    back on the device (each call's own small kernels included).  The
+    spin doubles until the host has finished queueing before it ends."""
+    import torch
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fn()
+    issue_s = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    spin_s = 2 * reps * issue_s + 1e-3
+    while True:
+        torch.cuda._sleep(int(spin_s * sm_clock_hz()))
+        start.record()
+        for _ in range(reps):
+            fn()
+        end.record()
+        queued_in_time = not start.query()    # the spin still running
+        torch.cuda.synchronize()
+        if queued_in_time:
+            return start.elapsed_time(end) / reps
+        spin_s *= 2
+
+
+@functools.lru_cache(None)
+def sm_clock_hz():
+    """The card's maximum SM clock (nvidia-smi, MHz) in Hz."""
+    return float(subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm",
+         "--format=csv,noheader,nounits"], check=True, capture_output=True,
+        text=True).stdout.split()[0]) * 1e6
+
+
 @functools.lru_cache(None)
 def int32_ops_per_s():
     """Peak 32-bit integer/logic issue rate: SMs x INT32 lanes per SM x
-    the card's maximum SM clock (nvidia-smi, MHz)."""
+    the card's maximum SM clock."""
     import torch
-    mhz = float(subprocess.run(
-        ["nvidia-smi", "--query-gpu=clocks.max.sm",
-         "--format=csv,noheader,nounits"], check=True, capture_output=True,
-        text=True).stdout.split()[0])
     sms = torch.cuda.get_device_properties(0).multi_processor_count
-    return sms * INT32_LANES_PER_SM * mhz * 1e6
+    return sms * INT32_LANES_PER_SM * sm_clock_hz()
 
 
 def bound(n_bytes, n_ops):
@@ -291,10 +340,12 @@ def check_k1_rescue(dev, rng):
 
 
 def bitpar_ops(B, TXT, P):
-    """32-bit operations of the bit-parallel scan: ~22 per pattern word
-    and ~8 more per text column, plus the Peq build."""
+    """32-bit instructions the bit-parallel scan needs at the least: per
+    pattern word and text column the recurrence's boolean functions as
+    three-input LOP3s, the carried add and two funnel shifts (10), per
+    column ~4 more for the score, plus the Peq build."""
     W = (P + 31) // 32
-    return float(B) * TXT * (W * 22 + 8) + B * P * 4 * W
+    return float(B) * TXT * (W * 10 + 4) + B * P * W
 
 
 def packed_cases(rng, B, P, TXT, off, reverse, free_start):
@@ -383,13 +434,60 @@ def check_k4(dev, rng):
                 within_6=int((want <= 6).sum()))
 
 
+def check_k5(dev, rng):
+    """K5 on edge cases at the RNA paths' widths: P = 100, T = P + e_max
+    at e_max 16 (single) and 17 (paired), random k, clipped text windows,
+    a third of the rows with a free prefix (up to the whole read), f32
+    quality rows; against the plain version and, bit for bit (log
+    probabilities included), against K1 on the same rows."""
+    import torch
+    from snap_rnaseq_tpu_torch.ops import lv
+    from snap_rnaseq_tpu_torch.ops.lv_cuda import lv_lanes, lv_lanes_onehot
+    B, P = 40_960, READ_LEN
+    to = lambda a: torch.from_numpy(a).to(dev)
+    err, found = 0.0, 0
+    for E in (16, 17):
+        T = P + E
+        pats, texts, t_len = edit_cases(rng, B, P, T, E + 2)
+        short = rng.random(B) < 0.05
+        t_len[short] = rng.integers(P - E, T, int(short.sum()))
+        k = np.where(rng.random(B) < 0.9, E,
+                     rng.integers(0, E + 1, B)).astype(np.int32)
+        free = np.where(rng.random(B) < 0.33, rng.integers(0, P + 1, B),
+                        0).astype(np.int32)
+        quals = rng.integers(35, 74, (B, P)).astype(np.uint8)
+        args = (to(pats), to(np.full(B, P, np.int32)), to(texts), to(t_len),
+                to(k), lv.phred_log_prob_device(to(quals)), to(free))
+        got = lv_lanes_onehot(*args, e_max=E)
+        want = lv._lv_distance_plain(*args, e_max=E)
+        k1 = lv_lanes(*args, e_max=E)
+        ints = ("distance", "e_final", "d_final", "net_indel")
+        for f in ints:
+            assert_same(f"K5 e_max {E} {f}", getattr(got, f),
+                        getattr(want, f))
+        for f in ints + ("log_prob",):
+            assert_same(f"K5 vs K1 e_max {E} {f}", getattr(got, f),
+                        getattr(k1, f))
+        err = max(err, logp_err(f"K5 e_max {E}", got.log_prob,
+                                want.log_prob))
+        found += int((want.distance >= 0).sum())
+        # the two LV-lanes kernels on the same rows, device time
+        k5_ms = device_ms(lambda: lv_lanes_onehot(*args, e_max=E), 10)
+        k1_ms = device_ms(lambda: lv_lanes(*args, e_max=E), 10)
+        log(f"K5 vs K1, {B} rows, e_max {E}: {k5_ms:.4f} and {k1_ms:.4f} "
+            "ms on the device")
+    return dict(name="K5_lv_onehot (e_max 16 and 17, = plain and K1)",
+                rows=2 * B, max_abs_err=err, found=found)
+
+
 # ---------------------------------------------------------------- path calls
 
 # the kernel wrappers, by the module attribute their callers look up; at
 # most this many call shapes are recorded per run (a path makes under 30)
 MAX_RECORDED_SHAPES = 64
 WRAPPERS = (("lv_cuda", "lv_lanes"), ("lv_cuda", "lv_cigar"),
-            ("bitpar", "bitpar_packed"), ("bitpar", "bitpar_rows"))
+            ("bitpar", "bitpar_packed"), ("bitpar", "bitpar_rows"),
+            ("lv_cuda", "lv_lanes_onehot"))
 KERNEL_INFO = {   # name: (source, the TPU kernel it replaces)
     "K1_lv_lanes": ("snap_rnaseq_tpu_torch/csrc/lv_lanes.cu",
                     "snap_rnaseq_tpu/ops/lv_pallas.py:374"),
@@ -402,6 +500,8 @@ KERNEL_INFO = {   # name: (source, the TPU kernel it replaces)
     "K4_bitpar_rows": ("snap_rnaseq_tpu_torch/csrc/bitpar_rows.cu",
                        "snap_rnaseq_tpu/ops/bitpar.py:69 (unpacked, call "
                        ":179)"),
+    "K5_lv_onehot": ("snap_rnaseq_tpu_torch/csrc/lv_onehot.cu",
+                     "snap_rnaseq_tpu/ops/lv_pallas.py:567"),
 }
 
 
@@ -410,7 +510,8 @@ def kernel_of_call(attr, a):
         rescue = a["reverse"] or a["free_start"] or a["track_pos"]
         return "K2_bitpar_rescue" if rescue else "K2_bitpar_packed"
     return {"lv_lanes": "K1_lv_lanes", "lv_cigar": "K3_lv_cigar",
-            "bitpar_rows": "K4_bitpar_rows"}[attr]
+            "bitpar_rows": "K4_bitpar_rows",
+            "lv_lanes_onehot": "K5_lv_onehot"}[attr]
 
 
 def host_copy(t):
@@ -474,7 +575,7 @@ def _plain_and_work(kernel, a):
     compare(got, want) -> max_abs_err, (bytes, operations)(want))."""
     from snap_rnaseq_tpu_torch.ops import bitpar, lv
     B, P = a["pattern"].shape
-    if kernel in ("K1_lv_lanes", "K3_lv_cigar"):
+    if kernel in ("K1_lv_lanes", "K3_lv_cigar", "K5_lv_onehot"):
         cigar = kernel == "K3_lv_cigar"
         E, T = a["e_max"], a["text"].shape[1]
         q = a["quality"]
@@ -556,14 +657,15 @@ def check_path_calls(path, calls):
         want = plain()
         err = compare(rec["fn"](**a), want)
         ms = time_ms(lambda: rec["fn"](**a), 20)
+        dev_ms = device_ms(lambda: rec["fn"](**a), 20)
         plain_ms = time_ms(plain, 3)
         b_ms, b_by = bound(*work(want))
         shape = call_shape(a)
-        log(f"{path} {kernel} {shape} x{rec['n']}: kernel {ms:.4f} ms, "
-            f"plain {plain_ms:.4f} ms, bound {b_ms:.5f} ms ({b_by}), "
-            f"max_abs_err {err}")
+        log(f"{path} {kernel} {shape} x{rec['n']}: kernel {ms:.4f} ms "
+            f"({dev_ms:.4f} on the device), plain {plain_ms:.4f} ms, bound "
+            f"{b_ms:.5f} ms ({b_by}), max_abs_err {err}")
         per.setdefault(kernel, []).append(
-            (rec["n"], ms, plain_ms, b_ms, b_by, err, shape))
+            (rec["n"], ms, plain_ms, b_ms, b_by, err, shape, dev_ms))
     out = {}
     for kernel, rows in per.items():
         n = sum(r[0] for r in rows)
@@ -571,6 +673,7 @@ def check_path_calls(path, calls):
         by = max(rows, key=lambda r: r[0] * r[3])[4]
         out[kernel] = dict(calls=n, ms=mean(1), plain_ms=mean(2),
                            bound_ms=mean(3), bound_by=by,
+                           device_ms=mean(7),
                            max_abs_err=max(r[5] for r in rows),
                            shapes=[r[6] + [r[0]] for r in rows])
     return out
@@ -674,7 +777,92 @@ def same_as_golden(out, golden_name):
     return len(got)
 
 
+# tests/test_golden_paired_rna.py _build_ref's annotation: (gene,
+# transcript, chromosome, strand, 1-based inclusive exons)
+GOLDEN_TRANSCRIPTS = (
+    ("gA", "tA1", "chr1", "+", ((2001, 2600), (4001, 4700), (7001, 7800))),
+    ("gA", "tA2", "chr1", "+", ((2001, 2600), (7001, 7800))),
+    ("gB", "tB1", "chr2", "-", ((9001, 9700), (12001, 12800))))
+
+
+def write_gtf(path, transcripts):
+    """exon rows in the format of tests/test_golden_paired_rna.py."""
+    rows = []
+    for gid, tid, chrom, strand, exons in transcripts:
+        for i, (s, e) in enumerate(exons):
+            rows.append(f'{chrom}\tsrc\texon\t{s}\t{e}\t.\t{strand}\t.\t'
+                        f'gene_id "{gid}"; transcript_id "{tid}"; '
+                        f'exon_number "{i + 1}";')
+    with open(path, "w") as f:
+        f.write("\n".join(rows) + "\n")
+
+
+def golden_rna_reads(tmp, fa):
+    """tests/test_golden_paired_rna.py _rna_dataset: reads cut from the
+    spliced tA1 transcript, then genomic reads."""
+    from snap_rnaseq_tpu_torch.index.genome import read_fasta_genome
+    from snap_rnaseq_tpu_torch.utils.tables import (decode_bases,
+                                                    reverse_complement_codes)
+    g = read_fasta_genome(fa)
+    rng = np.random.default_rng(515151)
+    codes = np.asarray(g.codes)
+    base = int(g.piece_offsets[0])
+    tseq = np.concatenate([codes[base + s - 1: base + e]
+                           for s, e in GOLDEN_TRANSCRIPTS[0][4]])
+    L = 100
+    path = os.path.join(tmp, "rna_reads.fq")
+    with open(path, "wb") as f:
+        for i in range(24):
+            off = int(rng.integers(0, len(tseq) - L))
+            r = tseq[off:off + L].copy()
+            if i % 4 == 0:
+                p = int(rng.integers(0, L))
+                r[p] = (r[p] + int(rng.integers(1, 4))) % 4
+            if i % 2:
+                r = reverse_complement_codes(r)
+            f.write(b"@rt%d\n" % i + decode_bases(r) + b"\n+\n" + b"I" * L
+                    + b"\n")
+        for i in range(12):
+            piece = int(rng.integers(0, 2))
+            pb = int(g.piece_offsets[piece])
+            plen = 60000 if piece == 0 else 30000
+            s = pb + int(rng.integers(0, plen - L))
+            r = codes[s:s + L].copy()
+            if (r > 3).any():
+                continue
+            f.write(b"@rg%d\n" % i + decode_bases(r) + b"\n+\n" + b"I" * L
+                    + b"\n")
+    return path
+
+
+@contextlib.contextmanager
+def lv_lanes_impl(impl):
+    """SNAP_TPU_LV_LANES set to `impl` for the block (ops/lv.py reads it
+    at each call), restored after."""
+    old = os.environ.get("SNAP_TPU_LV_LANES")
+    os.environ["SNAP_TPU_LV_LANES"] = impl
+    try:
+        yield
+    finally:
+        if old is None:
+            del os.environ["SNAP_TPU_LV_LANES"]
+        else:
+            os.environ["SNAP_TPU_LV_LANES"] = old
+
+
+def check_lanes_kernel(impl, launches, what):
+    """The LV-lanes kernel the switch chose launched and the other did
+    not."""
+    on, off = (("K1_lv_lanes", "K5_lv_onehot") if impl == "bits"
+               else ("K5_lv_onehot", "K1_lv_lanes"))
+    if launches[on] <= 0 or launches[off] != 0:
+        raise AssertionError(f"{what}, SNAP_TPU_LV_LANES={impl}: {on} "
+                             f"launched {launches[on]} times, {off} "
+                             f"{launches[off]}")
+
+
 def golden_phase(tmp, device="cuda"):
+    from snap_rnaseq_tpu_torch.ops import kernels as kx
     fa, fq = golden_dataset(tmp)
     idx, out = os.path.join(tmp, "gidx"), os.path.join(tmp, "golden.sam")
     run_cli(["index", fa, idx])
@@ -684,10 +872,41 @@ def golden_phase(tmp, device="cuda"):
     idx, out = os.path.join(tmp, "gpidx"), os.path.join(tmp, "golden_p.sam")
     run_cli(["index", fa, idx])
     run_cli(["paired", idx, fq1, fq2, "-o", out, "--device", device])
-    return n_single, same_as_golden(out, "paired_100bp.sam")
+    n_paired = same_as_golden(out, "paired_100bp.sam")
+    # the RNA golden on the same genome, under both LV-lanes kernels
+    gtf, tidx = os.path.join(tmp, "ann.gtf"), os.path.join(tmp, "gtidx")
+    write_gtf(gtf, GOLDEN_TRANSCRIPTS)
+    run_cli(["transcriptome", gtf, fa, tidx])
+    reads = golden_rna_reads(tmp, fa)
+    n_rna = {}
+    for impl in ("bits", "onehot"):
+        out = os.path.join(tmp, f"golden_rna_{impl}.sam")
+        with lv_lanes_impl(impl):
+            kx.reset_launches()
+            run_cli(["single", idx, tidx, gtf, reads, "-o", out, "--device",
+                     device])
+            check_lanes_kernel(impl, dict(kx.LAUNCHES), "RNA golden")
+        n_rna[impl] = same_as_golden(out, "rna_single_100bp.sam")
+    return n_single, n_paired, n_rna
 
 
 # ---------------------------------------------------------------- phase 4
+
+def mutate(seg, rng, indel_rate):
+    """A read from `seg` (the read length plus 8 spare bases, for a
+    deletion): ~1% substitutions, then with probability `indel_rate` one
+    1-3 base insertion or deletion in the middle."""
+    seg = seg.copy()
+    n_sub = rng.binomial(READ_LEN, 0.01)
+    if n_sub:
+        p = rng.integers(0, READ_LEN, n_sub)
+        seg[p] = (seg[p] + rng.integers(1, 4, n_sub)) % 4
+    if rng.random() < indel_rate:
+        p, m = int(rng.integers(20, READ_LEN - 20)), int(rng.integers(1, 4))
+        seg = (np.delete(seg, np.arange(p, p + m)) if rng.random() < 0.5
+               else np.insert(seg, p, rng.integers(0, 4, m)))
+    return seg[:READ_LEN].astype(np.uint8)
+
 
 def simulate_reads(codes, n, rng):
     """100 bp reads: ~1% substitutions, 15% with a 1-3 base indel, half
@@ -697,16 +916,7 @@ def simulate_reads(codes, n, rng):
     starts = rng.integers(1000, G - L - 1000, n)
     out = []
     for i, s in enumerate(starts):
-        seg = codes[s:s + L + 8].copy()
-        n_sub = rng.binomial(L, 0.01)
-        if n_sub:
-            pos = rng.integers(0, L, n_sub)
-            seg[pos] = (seg[pos] + rng.integers(1, 4, n_sub)) % 4
-        if rng.random() < 0.15:
-            p, m = int(rng.integers(20, L - 20)), int(rng.integers(1, 4))
-            seg = (np.delete(seg, np.arange(p, p + m)) if rng.random() < 0.5
-                   else np.insert(seg, p, rng.integers(0, 4, m)))
-        r = seg[:L].astype(np.uint8)
+        r = mutate(codes[s:s + L + 8], rng, 0.15)
         rc = bool(rng.random() < 0.5)
         if rc:
             r = (3 - r[::-1]).astype(np.uint8)
@@ -873,11 +1083,227 @@ def paired_real_phase(tmp, codes, idx, index_s, n_pairs, batch):
     return res, calls
 
 
+# ---------------------------------------------------------------- phase 4c
+
+RNA_GENES = 1300
+ONEHOT_PATH = ("K5_lv_onehot", "K2_bitpar_packed", "K3_lv_cigar")
+
+
+def rna_annotation(n_bases, rng):
+    """Genes at the density of the human GENCODE annotation scaled to the
+    genome (about 20,000 protein-coding genes over 3.1 Gb: about 1,300
+    over 64 Mb), one per 1/1300 of the chromosome, on both strands: 3-12
+    exons of 80-400 bp with introns of 150-2,500 bp, and 2-6 isoforms per
+    gene (about 4), each a subset of at least two of its gene's exons."""
+    slot = n_bases // RNA_GENES
+    transcripts = []
+    for gi in range(RNA_GENES):
+        n_ex = int(rng.integers(3, 13))
+        lens = rng.integers(80, 401, n_ex)
+        gaps = rng.integers(150, 2501, n_ex)
+        gaps[0] = rng.integers(1000, 5000)
+        starts = (gi * slot + np.cumsum(gaps)
+                  + np.concatenate([[0], np.cumsum(lens[:-1])]))
+        exons = [(int(a) + 1, int(a + n)) for a, n in zip(starts, lens)]
+        strand = "+" if rng.random() < 0.5 else "-"
+        for ti in range(int(rng.integers(2, 7))):
+            keep = rng.random(n_ex) < 0.7
+            if keep.sum() < 2:
+                keep[[0, -1]] = True
+            transcripts.append((f"G{gi}", f"T{gi}.{ti}", "ref", strand,
+                                [e for e, k in zip(exons, keep) if k]))
+    return transcripts
+
+
+def spliced(codes, transcripts):
+    """Each transcript's sequence and the 0-based genome position of each
+    of its bases (the transcriptome's exons are in genome order)."""
+    out = []
+    for *_, exons in transcripts:
+        pos = np.concatenate([np.arange(s - 1, e) for s, e in exons])
+        out.append((codes[pos], pos))
+    return out
+
+
+def rna_single_reads(codes, tx, n, rng):
+    """80% cut from transcripts (a random transcript of at least 108
+    bases, a random offset, so many reads span a junction), 20% genomic;
+    5% with a 1-3 base indel, half reverse-complemented.  Returns (true
+    0-based genome start, spliced, codes)."""
+    long_tx = [t for t in tx if t[0].size >= READ_LEN + 8]
+    out = []
+    for _ in range(n):
+        if rng.random() < 0.8:
+            seq, pos = long_tx[int(rng.integers(0, len(long_tx)))]
+            o = int(rng.integers(0, seq.size - READ_LEN - 8 + 1))
+            seg, start = seq[o:o + READ_LEN + 8], int(pos[o])
+            spl = int(pos[o + READ_LEN - 1]) - start != READ_LEN - 1
+        else:
+            start = int(rng.integers(1000, codes.size - READ_LEN - 1000))
+            seg, spl = codes[start:start + READ_LEN + 8], False
+        r = mutate(seg, rng, 0.05)
+        if rng.random() < 0.5:
+            r = (3 - r[::-1]).astype(np.uint8)
+        out.append((start, spl, r))
+    return out
+
+
+def rna_pairs(tx, n, rng):
+    """FR pairs from transcript fragments of 200-400 bases: end 0 the
+    fragment's first 100 bases, end 1 the reverse complement of its last
+    100; ~1% substitutions, 5% of the ends with an indel.  Returns (true
+    0-based genome start of each end, codes of each end)."""
+    long_tx = [t for t in tx if t[0].size >= 208]
+    out = []
+    for _ in range(n):
+        seq, pos = long_tx[int(rng.integers(0, len(long_tx)))]
+        ins = int(rng.integers(200, min(400, seq.size - 8) + 1))
+        o = int(rng.integers(0, seq.size - ins - 8 + 1))
+        e0 = mutate(seq[o:o + READ_LEN + 8], rng, 0.05)
+        b = o + ins - READ_LEN
+        e1 = mutate(seq[b:b + READ_LEN + 8], rng, 0.05)
+        out.append((int(pos[o]), int(pos[b]), e0,
+                    (3 - e1[::-1]).astype(np.uint8)))
+    return out
+
+
+def sam_shares(path, truth_of, n_expected):
+    """(aligned records, records with an N, records within two read
+    lengths of their true start) over the SAM's records;
+    truth_of(qname, flag) gives the true 0-based start."""
+    n_al = n_n = n_true = 0
+    for line in open(path):
+        if line.startswith("@"):
+            continue
+        f = line.split("\t", 6)
+        flag = int(f[1])
+        if flag & 4:
+            continue
+        n_al += 1
+        n_n += "N" in f[5]
+        if abs(int(f[3]) - 1 - truth_of(f[0], flag)) <= 2 * READ_LEN:
+            n_true += 1
+    return n_al / n_expected, n_n / max(n_al, 1), n_true / n_expected
+
+
+def sam_records(path):
+    return [l for l in open(path) if not l.startswith("@PG")]
+
+
+def rna_real_phase(tmp, codes, idx, index_s, n_reads, n_pairs, batch):
+    """Phase 4c: the annotation, its transcriptome through the CLI, then
+    RNA single (default and onehot) and RNA paired, counters zeroed and
+    calls recorded around each run."""
+    from snap_rnaseq_tpu_torch.utils.tables import decode_bases
+    rng = np.random.default_rng(20261018)
+    transcripts = rna_annotation(codes.size, rng)
+    gtf = os.path.join(tmp, "real.gtf")
+    write_gtf(gtf, transcripts)
+    tidx = os.path.join(tmp, "tidx")
+    t0 = time.time()
+    run_cli(["transcriptome", gtf, os.path.join(tmp, "hg_like.fa"), tidx])
+    tx_s = time.time() - t0
+    tx = spliced(codes, transcripts)
+    log(f"transcriptome: {len(transcripts)} transcripts, "
+        f"{sum(t[0].size for t in tx)} bases in {tx_s:.3f} s")
+
+    reads = rna_single_reads(codes, tx, n_reads, rng)
+    fq = os.path.join(tmp, "rna_reads.fq")
+    with open(fq, "wb") as f:
+        for i, (s, spl, r) in enumerate(reads):
+            f.write(b"@r%d_%d_%d\n" % (i, s, spl) + decode_bases(r)
+                    + b"\n+\n" + b"I" * READ_LEN + b"\n")
+    truth = lambda q, flag: int(q.split("_")[1])
+    res, calls = {}, {}
+    for name, impl, path in (("rna_single", "bits", SINGLE_PATH),
+                             ("rna_single_onehot", "onehot", ONEHOT_PATH)):
+        out = os.path.join(tmp, f"{name}.sam")
+        perf = os.path.join(tmp, f"{name}.tsv")
+        with lv_lanes_impl(impl):
+            stdout, launches, calls[name], wall_s, peak = counted_cli(
+                ["single", idx, tidx, gtf, fq, "-o", out, "-bs", str(batch),
+                 "--device", "cuda", "-pf", perf], path)
+        check_lanes_kernel(impl, launches, name)
+        total, align_s = perf_row(perf)
+        al, n_share, at = sam_shares(out, truth, total)
+        res[name] = dict(reads=total, align_s=align_s,
+                         reads_per_s=total / align_s, wall_s=wall_s,
+                         aligned_share=al, spliced_record_share=n_share,
+                         at_origin_share=at,
+                         spliced_read_share=sum(r[1] for r in reads) / total,
+                         index_build_s=index_s, transcriptome_build_s=tx_s,
+                         peak_device_bytes=peak, launches=launches,
+                         wait_profile=wait_line(stdout))
+        if at < 0.8:
+            raise AssertionError(f"{name}: only {at:.3f} of reads placed "
+                                 "at their origin")
+    if sam_records(os.path.join(tmp, "rna_single.sam")) != sam_records(
+            os.path.join(tmp, "rna_single_onehot.sam")):
+        raise AssertionError("RNA single: the SAM under onehot (K5) "
+                             "differs from the default run's (K1)")
+
+    pairs = rna_pairs(tx, n_pairs, rng)
+    fq1, fq2 = (os.path.join(tmp, "rna_r1.fq"),
+                os.path.join(tmp, "rna_r2.fq"))
+    with open(fq1, "wb") as f0, open(fq2, "wb") as f1:
+        for i, (t0_, t1_, a, b) in enumerate(pairs):
+            rid = b"@q%d_%d_%d" % (i, t0_, t1_)
+            f0.write(rid + b"/1\n" + decode_bases(a) + b"\n+\n"
+                     + b"I" * READ_LEN + b"\n")
+            f1.write(rid + b"/2\n" + decode_bases(b) + b"\n+\n"
+                     + b"I" * READ_LEN + b"\n")
+    out = os.path.join(tmp, "rna_paired.sam")
+    perf = os.path.join(tmp, "rna_paired.tsv")
+    stdout, launches, calls["rna_paired"], wall_s, peak = counted_cli(
+        ["paired", idx, tidx, gtf, fq1, fq2, "-o", out, "-bs", str(batch),
+         "--device", "cuda", "-pf", perf], PAIRED_PATH)
+    total, align_s = perf_row(perf)
+    truth = lambda q, flag: int(q.split("_")[1 + (0 if flag & 0x40 else 1)])
+    al, n_share, at = sam_shares(out, truth, total)
+    res["rna_paired"] = dict(
+        pairs=total // 2, align_s=align_s, pairs_per_s=total / 2 / align_s,
+        wall_s=wall_s, aligned_share=al, spliced_record_share=n_share,
+        at_origin_share=at, index_build_s=index_s,
+        transcriptome_build_s=tx_s, peak_device_bytes=peak,
+        launches=launches, wait_profile=wait_line(stdout))
+    if at < 0.8:
+        raise AssertionError(f"rna_paired: only {at:.3f} of ends placed at "
+                             "their origin")
+    res["rna_paired"]["t_engine"] = rna_t_engine_phase(
+        tidx, np.stack([p[2] for p in pairs]), batch)
+    return res, calls
+
+
+def rna_t_engine_phase(tidx, codes, batch):
+    """RNA paired's transcriptome engine alone, as the pipeline builds it
+    at the paired defaults and -tmh 1000 (2,000 candidate slots and 1,000
+    multi-hits per read), on end 0 of the first six batches of pairs
+    (engine_phase), with its peak device memory."""
+    import torch
+    from snap_rnaseq_tpu_torch.constants import PAIRED_DEFAULTS as d
+    from snap_rnaseq_tpu_torch.index.hash_index import GenomeIndex
+    from snap_rnaseq_tpu_torch.models.single import SingleAligner, fetch
+    aligner = SingleAligner(
+        GenomeIndex.load(tidx), device="cuda", max_k=d["max_dist"],
+        max_hits=d["max_hits"], num_seeds=d["num_seeds"],
+        cand_per_read=2000, max_hits_to_get=1000)
+    quals = torch.full((batch, READ_LEN), ord("I"), dtype=torch.uint8,
+                       device="cuda")
+    batches = [codes[i * batch:(i + 1) * batch] for i in range(6)]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    res = engine_phase(lambda b: fetch(aligner.align_batch_device(
+        torch.from_numpy(b).cuda(), quals)), batches, batch)
+    res["peak_device_bytes"] = torch.cuda.max_memory_allocated()
+    return res
+
+
 # device kernels of the port, by the name the profiler gives them
 KERNEL_NAMES = (("K1_lv_lanes", "lv_lanes_kernel"),
                 ("K2_bitpar_packed", "bitpar_packed_kernel"),
                 ("K3_lv_cigar", "lv_cigar_kernel"),
-                ("K4_bitpar_rows", "bitpar_rows_kernel"))
+                ("K4_bitpar_rows", "bitpar_rows_kernel"),
+                ("K5_lv_onehot", "lv_onehot_kernel"))
 
 
 def kernel_of(event_name):
@@ -913,7 +1339,7 @@ def engine_phase(step, batches, per_batch, n_warm=2, n_timed=4):
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         run(timed)
-    busy_us, n_ops, kern_us = 0.0, 0, {}
+    busy_us, n_ops, kern_us, kern_n = 0.0, 0, {}, {}
     for e in prof.events():
         if e.device_type != DeviceType.CUDA:
             continue
@@ -923,6 +1349,7 @@ def engine_phase(step, batches, per_batch, n_warm=2, n_timed=4):
         k = kernel_of(e.name)
         if k:
             kern_us[k] = kern_us.get(k, 0.0) + us
+            kern_n[k] = kern_n.get(k, 0) + 1
     busy_ms = busy_us / 1e3 / n_timed
     if n_ops == 0:
         raise AssertionError("the profiler saw no device operation")
@@ -932,7 +1359,9 @@ def engine_phase(step, batches, per_batch, n_warm=2, n_timed=4):
                 device_idle_share=1.0 - busy_ms / wall_ms,
                 device_ops_per_batch=n_ops / n_timed,
                 kernel_ms_per_batch={k: v / 1e3 / n_timed
-                                     for k, v in sorted(kern_us.items())})
+                                     for k, v in sorted(kern_us.items())},
+                kernel_events_per_batch={k: v / n_timed
+                                         for k, v in sorted(kern_n.items())})
 
 
 def single_engine_phase(idx, codes, batch):
@@ -1019,15 +1448,16 @@ def main():
     rng = np.random.default_rng(7)
     checks = [check_k1(dev, rng), check_k1_rescue(dev, rng),
               check_k2(dev, rng), check_k2_rescue(dev, rng),
-              check_k3(dev, rng), check_k4(dev, rng)]
+              check_k3(dev, rng), check_k4(dev, rng), check_k5(dev, rng)]
     for c in checks:
         log(f"{c['name']}: {c['rows']} rows match the plain version, "
             f"max_abs_err {c['max_abs_err']}")
 
     with tempfile.TemporaryDirectory() as tmp:
-        n_single, n_paired = golden_phase(tmp)
-        log(f"golden: {n_single} single and {n_paired} paired SAM lines "
-            "identical on the card")
+        n_single, n_paired, n_rna = golden_phase(tmp)
+        log(f"golden: {n_single} single, {n_paired} paired and "
+            f"{n_rna['bits']} / {n_rna['onehot']} RNA single (K1 / K5) SAM "
+            "lines identical on the card")
         codes, idx, index_s = real_index(tmp, GENOME_BASES)
         single, single_calls = single_real_phase(
             tmp, codes, idx, index_s, N_BATCHES * BATCH, BATCH)
@@ -1035,6 +1465,11 @@ def main():
         paired, paired_calls = paired_real_phase(
             tmp, codes, idx, index_s, N_BATCHES * BATCH, BATCH)
         log("real size, paired: " + json.dumps(paired))
+        rna, rna_calls = rna_real_phase(tmp, codes, idx, index_s,
+                                        N_BATCHES * BATCH, N_BATCHES * BATCH,
+                                        BATCH)
+        for name, r in rna.items():
+            log(f"real size, {name}: " + json.dumps(r))
     lines, sz_launches, sz_calls = stringz_phase()
     for line in lines:
         log(f"stringz: {line}")
@@ -1042,17 +1477,20 @@ def main():
 
     # phase 6: every kernel call shape of each main path, on its inputs
     by_path = dict(single=single["launches"], paired=paired["launches"],
-                   stringz=sz_launches)
+                   stringz=sz_launches,
+                   **{name: r["launches"] for name, r in rna.items()})
     at_path = {p: check_path_calls(p, c) for p, c in (
         ("single", single_calls), ("paired", paired_calls),
-        ("stringz", sz_calls))}
+        ("stringz", sz_calls), *rna_calls.items())}
     log(f"total: {time.time() - t_start:.1f} s")
 
     # each kernel at the path whose launches it reports: the paired path
-    # (the newest main path) for the kernels it runs, stringz for K4
+    # for the kernels it runs, stringz for K4, RNA single under onehot for
+    # K5
     kernels = []
     for name, (source, replaces) in KERNEL_INFO.items():
-        path = "stringz" if name in STRINGZ_PATH else "paired"
+        path = ("stringz" if name in STRINGZ_PATH else "rna_single_onehot"
+                if name == "K5_lv_onehot" else "paired")
         c = at_path[path][name]
         if c["calls"] != by_path[path][name]:
             raise AssertionError(f"{name}: {c['calls']} of the {path} "
@@ -1062,7 +1500,8 @@ def main():
             name=name, route="cuda", source=source, replaces=replaces,
             launches=by_path[path][name], max_abs_err=c["max_abs_err"],
             ms=c["ms"], plain_ms=c["plain_ms"], bound_ms=c["bound_ms"],
-            bound_by=c["bound_by"], library_ms=None, path=path,
+            bound_by=c["bound_by"], library_ms=None,
+            device_ms=c["device_ms"], path=path,
             shapes=c["shapes"],
             launches_by_path={p: v[name] for p, v in by_path.items()}))
     print(json.dumps({"kernels": kernels}))

@@ -1,6 +1,7 @@
 // Banded Landau-Vishkin edit distance for one candidate per thread: the
 // shared core of the LV-lanes kernel (lv_lanes.cu) and the LV-CIGAR kernel
-// (lv_cigar.cu).
+// (lv_cigar.cu).  The probability backtrace (`backtrace`) also serves the
+// warp-per-row LV kernel (lv_onehot.cu), whose table is in shared memory.
 //
 // Semantics follow snap_rnaseq_tpu/ops/lv.py _lv_distance_jax exactly:
 //   * L[e][d] = furthest pattern index reached with e edits on diagonal d
@@ -106,10 +107,11 @@ struct LocalTab {
 };
 
 // The action a level takes at diagonal d, from the previous level `prev`
-// alone: the best of up (X), left (D), right (I), first wins ties.
-template <int MAXE>
-__device__ __forceinline__ int act_from(const LocalTab<MAXE>& tab, int prev,
-                                        int d, int D) {
+// alone: the best of up (X), left (D), right (I), first wins ties.  Tab is
+// any table with L(e, d).
+template <class Tab>
+__device__ __forceinline__ int act_from(const Tab& tab, int prev, int d,
+                                        int D) {
   const int up = tab.L(prev, d) + 1;
   const int left = d > 0 ? tab.L(prev, d - 1) : -2;
   const int right = d < D - 1 ? tab.L(prev, d + 1) + 1 : -1;
@@ -117,6 +119,75 @@ __device__ __forceinline__ int act_from(const LocalTab<MAXE>& tab, int prev,
   if (left > best) { best = left; act = ACT_D; }
   if (right > best) act = ACT_I;
   return act;
+}
+
+// The probability backtrace over a finished table (levels 0..e_fin of any
+// Tab with L(e, d)): phase 1 recovers, in reverse, the action and matched
+// run of each level 1..e_fin into acts/matched; phase 2 walks them forward
+// for the log probability and the net indel; then the free-prefix,
+// perfect-match and failure rules of the plain version.
+template <class Tab>
+__device__ void backtrace(const Tab& tab, int D, int e_max, int p_len,
+                          int free_len, int dist, int e_fin, int d_fin,
+                          bool perfect, bool perfect_ok, const float* qlp,
+                          const Consts& cs, int8_t* acts, int16_t* matched,
+                          float* logp_out, int* net_out) {
+  const int center = e_max;
+  // phase 1: reverse over levels, recovering action + matched run; the
+  // action at (e, d) is a function of level e-1, recomputed here
+  auto clip = [D](int x) { return x < 0 ? 0 : (x > D - 1 ? D - 1 : x); };
+  int cur_d = d_fin;
+  for (int e = e_fin; e >= 1; --e) {
+    const int dd = clip(cur_d + center);
+    const int act = act_from(tab, e - 1, dd, D);
+    const int l_here = tab.L(e, dd);
+    int m;
+    if (act == ACT_I) m = l_here - tab.L(e - 1, clip(cur_d + 1 + center)) - 1;
+    else if (act == ACT_D) m = l_here - tab.L(e - 1, clip(cur_d - 1 + center));
+    else m = l_here - tab.L(e - 1, dd) - 1;
+    cur_d += act == ACT_I ? 1 : (act == ACT_D ? -1 : 0);
+    acts[e] = static_cast<int8_t>(act);
+    matched[e] = static_cast<int16_t>(m);
+  }
+
+  // phase 2: forward walk, log probability + net indel
+  const int qmax = p_len - 1 > 0 ? p_len - 1 : 0;
+  int offset = tab.L(0, center);
+  float logp = 0.f;
+  int net = 0, prev_act = -1;
+  bool run_open = false;
+  for (int e = 1; e <= e_fin; ++e) {
+    const int act = acts[e];
+    const int m = matched[e];
+    const bool cont = run_open && act == prev_act;
+    const bool is_indel = act == ACT_I || act == ACT_D;
+    float add;
+    if (is_indel) {
+      add = cont ? cs.log_gap_extend : cs.log_gap_open;
+    } else {
+      const int qi = offset < 0 ? 0 : (offset > qmax ? qmax : offset);
+      add = qlp ? qlp[qi] : cs.qconst;
+    }
+    logp = __fadd_rn(logp, add);
+    offset += act == ACT_D ? -1 : 1;
+    net += act == ACT_I ? 1 : (act == ACT_D ? -1 : 0);
+    offset += m;
+    run_open = m == 0;
+    prev_act = act;
+  }
+  logp = __fadd_rn(logp, __fmul_rn(static_cast<float>(p_len - e_fin),
+                                   cs.log_one_minus_snp));
+  logp = __fsub_rn(logp, __fmul_rn(static_cast<float>(free_len),
+                                   cs.log_one_minus_snp));
+  if (perfect) {
+    logp = perfect_ok ? __fmul_rn(static_cast<float>(p_len - free_len),
+                                  cs.log_one_minus_snp)
+                      : NEG_INF;
+    net = 0;
+  }
+  if (dist < 0) logp = NEG_INF;
+  *logp_out = logp;
+  *net_out = net;
 }
 
 // One row: fills tab's levels 0..last (the row stops at the level where
@@ -172,59 +243,10 @@ __device__ Result lv_one(const uint8_t* pat, const uint8_t* txt, int p_len,
     done = any || e >= k;
   }
 
-  // phase 1: reverse over levels, recovering action + matched run; the
-  // action at (e, d) is a function of level e-1, recomputed here
-  auto clip = [D](int x) { return x < 0 ? 0 : (x > D - 1 ? D - 1 : x); };
-  int cur_d = d_fin;
-  for (int e = e_fin; e >= 1; --e) {
-    const int dd = clip(cur_d + center);
-    const int act = act_from(tab, e - 1, dd, D);
-    const int l_here = tab.L(e, dd);
-    int m;
-    if (act == ACT_I) m = l_here - tab.L(e - 1, clip(cur_d + 1 + center)) - 1;
-    else if (act == ACT_D) m = l_here - tab.L(e - 1, clip(cur_d - 1 + center));
-    else m = l_here - tab.L(e - 1, dd) - 1;
-    cur_d += act == ACT_I ? 1 : (act == ACT_D ? -1 : 0);
-    acts[e] = static_cast<int8_t>(act);
-    matched[e] = static_cast<int16_t>(m);
-  }
-
-  // phase 2: forward walk, log probability + net indel
-  const int qmax = p_len - 1 > 0 ? p_len - 1 : 0;
-  int offset = tab.L(0, center);
-  float logp = 0.f;
-  int net = 0, prev_act = -1;
-  bool run_open = false;
-  for (int e = 1; e <= e_fin; ++e) {
-    const int act = acts[e];
-    const int m = matched[e];
-    const bool cont = run_open && act == prev_act;
-    const bool is_indel = act == ACT_I || act == ACT_D;
-    float add;
-    if (is_indel) {
-      add = cont ? cs.log_gap_extend : cs.log_gap_open;
-    } else {
-      const int qi = offset < 0 ? 0 : (offset > qmax ? qmax : offset);
-      add = qlp ? qlp[qi] : cs.qconst;
-    }
-    logp = __fadd_rn(logp, add);
-    offset += act == ACT_D ? -1 : 1;
-    net += act == ACT_I ? 1 : (act == ACT_D ? -1 : 0);
-    offset += m;
-    run_open = m == 0;
-    prev_act = act;
-  }
-  logp = __fadd_rn(logp, __fmul_rn(static_cast<float>(p_len - e_fin),
-                                   cs.log_one_minus_snp));
-  logp = __fsub_rn(logp, __fmul_rn(static_cast<float>(free_len),
-                                   cs.log_one_minus_snp));
-  if (perfect) {
-    logp = perfect_ok ? __fmul_rn(static_cast<float>(p_len - free_len),
-                                  cs.log_one_minus_snp)
-                      : NEG_INF;
-    net = 0;
-  }
-  if (dist < 0) logp = NEG_INF;
+  float logp;
+  int net;
+  backtrace(tab, D, e_max, p_len, free_len, dist, e_fin, d_fin, perfect,
+            perfect_ok, qlp, cs, acts, matched, &logp, &net);
   return Result{dist, e_fin, d_fin, net, logp, last};
 }
 

@@ -38,6 +38,7 @@ SOURCES = {
     "bitpar_packed": "bitpar_packed.cu",  # K2 (forward and rescue forms)
     "lv_cigar": "lv_cigar.cu",           # K3
     "bitpar_rows": "bitpar_rows.cu",      # K4
+    "lv_onehot": "lv_onehot.cu",         # K5
 }
 _HEADERS = ("lv_common.cuh", "bitpar_common.cuh")
 
@@ -53,11 +54,13 @@ _SIGNATURES = {
                  + [_P] * 11),
     "bitpar_rows": ("bitpar_rows_launch", [_P, _I, _P, _I, _P] + [_I] * 3
                     + [_P, _P]),
+    "lv_onehot": ("lv_onehot_launch", [_P] * 8 + [_I] * 4 + [_F] * 4
+                  + [_P] * 6),
 }
 
 # K2 counts its forward (prefilter) and its rescue launches apart
 LAUNCHES = {"K1_lv_lanes": 0, "K2_bitpar_packed": 0, "K2_bitpar_rescue": 0,
-            "K3_lv_cigar": 0, "K4_bitpar_rows": 0}
+            "K3_lv_cigar": 0, "K4_bitpar_rows": 0, "K5_lv_onehot": 0}
 _LOCK = threading.Lock()
 _LAUNCHERS: dict = {}
 

@@ -11,12 +11,16 @@ is accumulated in log space by the backtrace.
 `_lv_distance_plain` is the plain PyTorch version (the next-mismatch tensor
 + a level loop over the whole batch).  `lv_distance` routes by the device
 of its input: a CPU tensor goes to the plain version; a CUDA tensor goes to
-the hand-written kernels of ops/lv_cuda.py (K1 without tables, K3 with
-them) or raises — there is no fallback.
+the hand-written kernels of ops/lv_cuda.py (K1 or K5 without tables, K3
+with them) or raises — there is no fallback.  K1 and K5 compute the same
+function; which one runs is the JAX package's own switch,
+SNAP_TPU_LV_LANES ("bits", the default, for K1; any other value for K5).
 """
 from __future__ import annotations
 
 from typing import NamedTuple
+
+import os
 
 import numpy as np
 import torch
@@ -104,12 +108,15 @@ def lv_distance(pattern: torch.Tensor, p_len: torch.Tensor,
                 quality: torch.Tensor | None = None,
                 free: torch.Tensor | None = None, *, e_max: int,
                 cigar_order: bool = False,
-                keep_tables: bool = False) -> LVResult:
+                keep_tables: bool = False, impl: str | None = None) -> LVResult:
     """free: optional (B,) per-row FREE PREFIX length — pattern positions
     < free match any text byte and carry no probability.
 
-    Routes by device: CPU -> the plain version; CUDA -> K1 (no tables) or
-    K3 (keep_tables) of ops/lv_cuda.py."""
+    Routes by device: CPU -> the plain version; CUDA -> K3 (keep_tables)
+    or, without tables, K1 (impl "bits") or K5 (any other impl) of
+    ops/lv_cuda.py.  impl=None reads SNAP_TPU_LV_LANES at each call
+    (default "bits"), as lv_pallas.py lv_distance_pallas_lanes does; the
+    tables form ignores impl, as the JAX package's does."""
     if pattern.is_cuda:
         from . import lv_cuda
         if keep_tables:
@@ -118,8 +125,11 @@ def lv_distance(pattern: torch.Tensor, p_len: torch.Tensor,
             return lv_cuda.lv_cigar(pattern, p_len, text, t_len, k, quality,
                                     e_max=e_max, cigar_order=cigar_order,
                                     tables=True)
-        return lv_cuda.lv_lanes(pattern, p_len, text, t_len, k, quality,
-                                free, e_max=e_max, cigar_order=cigar_order)
+        if impl is None:
+            impl = os.environ.get("SNAP_TPU_LV_LANES", "bits")
+        lanes = lv_cuda.lv_lanes if impl == "bits" else lv_cuda.lv_lanes_onehot
+        return lanes(pattern, p_len, text, t_len, k, quality, free,
+                     e_max=e_max, cigar_order=cigar_order)
     if pattern.device.type != "cpu":
         raise RuntimeError(f"lv_distance: no kernel for {pattern.device}")
     return _lv_distance_plain(pattern, p_len, text, t_len, k, quality, free,

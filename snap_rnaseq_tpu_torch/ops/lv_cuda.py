@@ -3,13 +3,16 @@
   lv_lanes  K1, csrc/lv_lanes.cu: distance, e_final, d_final, log_prob and
             net_indel per row, with a per-row free prefix — the hot path
             of score_phase.
+  lv_lanes_onehot  K5, csrc/lv_onehot.cu: the same function and outputs
+            (one warp per row over a next-mismatch table), which ops/lv.py
+            launches instead of K1 under SNAP_TPU_LV_LANES=onehot.
   lv_cigar  K3, csrc/lv_cigar.cu: the same five scalars plus the edit
             script that CIGAR emission reads (start run, and actions and
             matched runs per level); with tables=True also the whole
             (e_max+1, D) L and action tables, for checks against the plain
             version.
 
-Both take CUDA tensors only: they check device, dtype, shape and
+All take CUDA tensors only: they check device, dtype, shape and
 contiguity, allocate outputs with torch.empty, launch on the current
 stream and raise if the launch failed.  Each adds one to its entry of
 kernels.LAUNCHES per launch.  The plain PyTorch versions they are held to
@@ -82,6 +85,21 @@ def lv_lanes(pattern, p_len, text, t_len, k, quality=None, free=None, *,
              e_max: int, cigar_order: bool = False) -> LVResult:
     """K1.  pattern (B, P) u8, text (B, T) u8 (the kernel masks text
     beyond t_len), p_len/t_len/k/free (B,), quality (B, P) u8 or f32."""
+    return _lanes("lv_lanes", "K1_lv_lanes", pattern, p_len, text, t_len, k,
+                  quality, free, e_max, cigar_order)
+
+
+def lv_lanes_onehot(pattern, p_len, text, t_len, k, quality=None, free=None,
+                    *, e_max: int, cigar_order: bool = False) -> LVResult:
+    """K5: the arguments, checks and outputs of lv_lanes (K1)."""
+    return _lanes("lv_onehot", "K5_lv_onehot", pattern, p_len, text, t_len,
+                  k, quality, free, e_max, cigar_order)
+
+
+def _lanes(lib, counter, pattern, p_len, text, t_len, k, quality, free,
+           e_max, cigar_order) -> LVResult:
+    """Launch the LV-lanes kernel of library `lib` (K1 or K5, the same C
+    signature) and count the launch under `counter`."""
     pattern, text, (p_len, t_len, k), qlp = _prepare(
         pattern, p_len, text, t_len, k, quality, e_max)
     dev = pattern.device
@@ -92,19 +110,20 @@ def lv_lanes(pattern, p_len, text, t_len, k, quality=None, free=None, *,
     outs = [torch.empty(B, dtype=torch.int32, device=dev) for _ in range(3)]
     logp = torch.empty(B, dtype=torch.float32, device=dev)
     net = torch.empty(B, dtype=torch.int32, device=dev)
-    err = kx.launcher("lv_lanes")(
+    err = kx.launcher(lib)(
         kx.ptr(pattern), kx.ptr(p_len), kx.ptr(text), kx.ptr(t_len),
         kx.ptr(k), kx.ptr(qlp), kx.ptr(free),
         kx.ptr(_prio(e_max, cigar_order, dev)), B, P, text.shape[1], e_max,
         *_consts(), kx.ptr(outs[0]), kx.ptr(outs[1]), kx.ptr(outs[2]),
         kx.ptr(logp), kx.ptr(net), kx.stream())
-    kx.check(err, "lv_lanes_launch")
-    kx.count_launch("K1_lv_lanes")
+    kx.check(err, f"{lib}_launch")
+    kx.count_launch(counter)
     dist, e_fin, d_fin = outs
     D = 2 * e_max + 1
     z3 = torch.zeros((B, 0, D), dtype=torch.int32, device=dev)
     z2 = torch.zeros((B, 0), dtype=torch.int32, device=dev)
-    # start_run (L[0][center]) is a CIGAR-path output; K1 does not return it
+    # start_run (L[0][center]) is a CIGAR-path output; K1/K5 do not return
+    # it
     return LVResult(distance=dist, log_prob=logp, net_indel=net,
                     e_final=e_fin, d_final=d_fin, L=z3, A=z3.clone(),
                     acts=z2, matched=z2.clone(),

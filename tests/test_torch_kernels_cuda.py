@@ -79,6 +79,40 @@ def test_k1_matches_plain(card, e_max, P, free, qual):
     assert (want.distance >= 0).any() and (want.distance < 0).any()
 
 
+@pytest.mark.parametrize("e_max", [16, 17, 31])
+@pytest.mark.parametrize("free", ["zero", "read"])
+def test_k5_matches_plain_and_k1(card, e_max, free, monkeypatch):
+    """K5 through lv_distance's switch (SNAP_TPU_LV_LANES=onehot) against
+    the plain version and, bit for bit, against K1 on the same rows; free
+    prefix 0 or the read length, random k, f32 quality rows."""
+    rng = np.random.default_rng(300 + e_max + (free == "read"))
+    B, P = 3000, 100
+    pats, p_len, texts, t_len = _edit_cases(rng, B, P, P + e_max, e_max)
+    to = lambda a: torch.from_numpy(a).to(card)
+    fr = to(p_len if free == "read" else np.zeros(B, np.int32))
+    q = lv.phred_log_prob_device(
+        to(rng.integers(33, 74, (B, P)).astype(np.uint8)))
+    k = rng.integers(0, e_max + 1, B).astype(np.int32)
+    k[:B // 2] = e_max
+    args = (to(pats), to(p_len), to(texts), to(t_len), to(k), q)
+    monkeypatch.setenv("SNAP_TPU_LV_LANES", "onehot")
+    before = dict(kernels.LAUNCHES)
+    got = lv.lv_distance(*args, fr, e_max=e_max)
+    assert kernels.LAUNCHES["K5_lv_onehot"] == before["K5_lv_onehot"] + 1
+    assert kernels.LAUNCHES["K1_lv_lanes"] == before["K1_lv_lanes"]
+    want = lv._lv_distance_plain(*args, fr, e_max=e_max)
+    fields = ("distance", "e_final", "d_final", "net_indel")
+    _same_lv(got, want, fields)
+    k1 = lv_cuda.lv_lanes(*args, fr, e_max=e_max)
+    for f in fields + ("log_prob",):
+        assert torch.equal(getattr(got, f), getattr(k1, f)), f
+    if free == "zero":
+        assert (want.distance >= 0).any() and (want.distance < 0).any()
+    else:                  # every base free: 0 wherever the text is long
+        long_text = torch.from_numpy(t_len >= p_len).to(card)
+        assert (want.distance[long_text] == 0).all()
+
+
 @pytest.mark.parametrize("P,off", [(100, 16), (40, 3), (128, 0)])
 def test_k2_matches_plain(card, P, off):
     rng = np.random.default_rng(P + off)

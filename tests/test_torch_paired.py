@@ -496,7 +496,7 @@ def test_not_ported_paired_forms_raise(golden):
     base = ["paired", golden["idx"], golden["r1"], golden["r2"], "-o"]
     for argv in (base + ["x.bam"], base + ["x.sam.gz"],
                  base + ["x.sam", "-so"], base + ["x.sam", "--hosts", "2"],
-                 ["paired", golden["idx"], golden["tmp"], "ann.gtf",
-                  golden["r1"], golden["r2"], "-o", "x.sam"]):
+                 ["paired", golden["idx"], "r1.sam", "r2.sam", "-o",
+                  "x.sam"]):
         with pytest.raises(SystemExit, match="not yet ported"):
             port_cli(argv)
