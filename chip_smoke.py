@@ -8,16 +8,20 @@ non-zero and prints no result without them.  Every phase raises on
 failure; nothing is caught.
 
 1. Build: the hand-written kernels are compiled from csrc/ (one nvcc per
-   source, all at once); prints the build seconds and the card's name and
-   power limit.
+   source, all at once); prints the build seconds, the card's name and
+   power limit, each kernel's registers and spills (`-Xptxas -v`) and the
+   SASS instructions per iteration of K2's and K4's column loops
+   (tools/sass_loops.py).
 2. Kernel checks: K1 (LV-lanes), K2 (packed bitpar, forward and every
    mate-rescue form), K3 (LV-CIGAR), K4 (bitpar over code rows) and K5
    (LV-lanes over a next-mismatch table) each against its plain PyTorch
    version on the card, on random edit cases that reach the edges
    (clipped texts, random k, pad codes, K1 at the rescue's e_max 17 with
    free 0 / free = read length rows, K5 at e_max 16 and 17 with free
-   prefixes, also bit for bit against K1); integers must be bit-identical
-   and log-probabilities within rtol/atol 1e-5.
+   prefixes, also bit for bit against K1, both timed on the same rows);
+   integers must be bit-identical and log-probabilities within rtol/atol
+   1e-5.  K2's rescue form is also run and timed at 1-32 chunks per row
+   (the split scan), each count giving the same answer.
 3. Golden: tests/test_golden.py's and tests/test_golden_paired_rna.py's
    datasets through the port's `index` + `single`, `index` + `paired` and
    `index` + `transcriptome` + RNA `single` CLI on the card must reproduce
@@ -58,8 +62,9 @@ failure; nothing is caught.
    from the same inputs.
 7. Prints the kernels line (each kernel's times are means per launch over
    the call shapes of the path whose launches it reports: paired for K1,
-   K2 and K3, stringz for K4, RNA single under onehot for K5), the card
-   line, and last the result line.
+   K2 and K3, stringz for K4, RNA single under onehot for K5; K1 and both
+   K2 forms also at RNA paired's shapes), the card line, and last the
+   result line.
 """
 import contextlib
 import functools
@@ -377,6 +382,7 @@ def check_k2_rescue(dev, rng):
     paired defaults, packed_off 0, reverse + free_start + track_pos."""
     import torch
     from snap_rnaseq_tpu_torch.ops import bitpar, u32
+    scan_chunks = bitpar.scan_chunks
     to = lambda a: torch.from_numpy(a).to(dev)
 
     def case(B, P, TXT, off, reverse, free_start, track_pos):
@@ -404,8 +410,32 @@ def check_k2_rescue(dev, rng):
             for t in (False, True):
                 if (r, f, t) != (True, True, True):
                     case(2048, 37, 300, 5, r, f, t)
-    B = 4096
-    want = case(B, READ_LEN, 1084, 0, True, True, True)
+    B, TXT = 4096, 1084
+    want = case(B, READ_LEN, TXT, 0, True, True, True)
+    # the split scan's chunk count at the rescue's shape, forced in place
+    # of scan_chunks' choice: each count gives the same answer; device
+    # time per launch
+    chosen = bitpar.scan_chunks(B, READ_LEN, TXT, True)
+    pats, words = packed_cases(rng, B, READ_LEN, TXT, 0, True, True)
+    pat, w = to(pats), u32.from_numpy(words, dev)
+    tl = to(np.full(B, TXT, np.int32))
+    kw = dict(P=READ_LEN, TXT=TXT, packed_off=0, reverse=True,
+              free_start=True, track_pos=True)
+    ref = bitpar.bitpar_packed(pat, w, tl, **kw)
+    sweep = {}
+    try:
+        for n in (1, 2, 4, 8, 16, 32):
+            bitpar.scan_chunks = (
+                lambda *_, n=n: (-(-TXT // n), 2 * READ_LEN, n))
+            assert_same(f"K2 rescue, {n} chunks",
+                        bitpar.bitpar_packed(pat, w, tl, **kw), ref)
+            sweep[n] = device_ms(
+                lambda: bitpar.bitpar_packed(pat, w, tl, **kw), 20)
+    finally:
+        bitpar.scan_chunks = scan_chunks
+    log(f"K2 rescue, {B} x {READ_LEN} x {TXT}, device ms by chunk count: "
+        + json.dumps(sweep) + f"; scan_chunks chooses (chunk_len, warm, "
+        f"n_chunks) = {chosen}")
     return dict(name="K2_bitpar_rescue", rows=B, max_abs_err=0.0,
                 within_e_max=int(((want >> 12) <= 17).sum()))
 
@@ -936,6 +966,8 @@ def write_fasta(path, codes, name="ref"):
 
 SINGLE_PATH = ("K1_lv_lanes", "K2_bitpar_packed", "K3_lv_cigar")
 PAIRED_PATH = SINGLE_PATH + ("K2_bitpar_rescue",)
+# redesigned kernels the kernels line also times at RNA paired's shapes
+RNA_PAIRED_TOO = ("K1_lv_lanes", "K2_bitpar_packed", "K2_bitpar_rescue")
 STRINGZ_PATH = ("K4_bitpar_rows",)
 
 
@@ -1422,6 +1454,44 @@ def stringz_phase():
     return buf.getvalue().splitlines(), launches, calls
 
 
+# ---------------------------------------------------------------- build
+
+def kernel_label(mangled):
+    """lv_lanes_kernel<1>, bitpar_packed_kernel<4,1,1,1> from a mangled
+    name (template arguments as numbers)."""
+    import re
+    m = re.search(r"\d([a-z_]+_kernel)(I(.*?)EE)?", mangled)
+    if not m:
+        return mangled
+    if not m.group(2):
+        return m.group(1)
+    args = re.findall(r"L[a-z](\d+)E", m.group(3) + "E")
+    return f"{m.group(1)}<{','.join(args)}>"
+
+
+def build_report(libs):
+    """Each kernel's registers and spill bytes from the build (`-Xptxas
+    -v`), and the SASS size of K2's and K4's innermost loops
+    (tools/sass_loops.py; W = 3 and 4, i.e. P = 65-128)."""
+    from snap_rnaseq_tpu_torch.ops import kernels as kx
+    from snap_rnaseq_tpu_torch.tools import sass_loops
+    for name in kx.SOURCES:
+        rows = {kernel_label(r["function"]): [
+            r.get("registers"), r.get("spill_stores"), r.get("spill_loads")]
+            for r in kx.ptxas_report(name)}
+        log(f"ptxas {name} [registers, spill stores, spill loads]: "
+            + json.dumps(rows))
+    if sass_loops.cuobjdump() is None:
+        log("sass: cuobjdump not found")
+        return
+    for name in ("bitpar_packed", "bitpar_rows"):
+        for fn, loops in sass_loops.report(libs[name]).items():
+            label = kernel_label(fn)
+            if "<3," in label or "<4," in label:
+                log(f"sass {label}: loop bodies of "
+                    f"{[n for n, _ in loops]} instructions")
+
+
 # ---------------------------------------------------------------- main
 
 def main():
@@ -1440,8 +1510,9 @@ def main():
     log(f"card: {card}; torch {torch.__version__}, CUDA {torch.version.cuda}")
 
     t0 = time.time()
-    kx.build_all()
+    libs = kx.build_all()
     log(f"build: {time.time() - t0:.3f} s for {len(kx.SOURCES)} kernels")
+    build_report(libs)
     log(f"peaks: {HBM_BYTES_PER_S:.4g} B/s HBM, {int32_ops_per_s():.4g} "
         "int32 op/s")
 
@@ -1496,14 +1567,20 @@ def main():
             raise AssertionError(f"{name}: {c['calls']} of the {path} "
                                  f"path's {by_path[path][name]} launches "
                                  "were recorded")
-        kernels.append(dict(
+        k = dict(
             name=name, route="cuda", source=source, replaces=replaces,
             launches=by_path[path][name], max_abs_err=c["max_abs_err"],
             ms=c["ms"], plain_ms=c["plain_ms"], bound_ms=c["bound_ms"],
             bound_by=c["bound_by"], library_ms=None,
             device_ms=c["device_ms"], path=path,
             shapes=c["shapes"],
-            launches_by_path={p: v[name] for p, v in by_path.items()}))
+            launches_by_path={p: v[name] for p, v in by_path.items()})
+        if name in RNA_PAIRED_TOO:
+            r = at_path["rna_paired"][name]
+            k.update(rna_paired_device_ms=r["device_ms"],
+                     rna_paired_bound_ms=r["bound_ms"],
+                     rna_paired_shapes=r["shapes"])
+        kernels.append(k)
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

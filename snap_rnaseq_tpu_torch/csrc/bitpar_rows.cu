@@ -9,11 +9,12 @@
 // track_pos as in K2 (template parameters); the column step is
 // bitpar_common.cuh's, shared with K2.
 //
-// What bounds it on an H100: integer issue, as K2 (~20 W-word operations
-// per column against TXT + P bytes per row).  Design: one row per thread,
-// Peq/PV/MV in registers; each thread reads its own text row a byte at a
-// time (a warp's loads touch 32 rows, which L1 then serves for the next
-// columns).
+// What bounds it on an H100: the integer instruction rate, as K2 (the
+// column step's W words of boolean work per column, bitpar_common.cuh,
+// against TXT + P bytes per row).  Design: one row per thread, PV/MV in registers, the
+// Peq rows in the block's shared table (bitpar_common.cuh); each thread
+// reads its own text row a byte at a time (a warp's loads touch 32 rows,
+// which L1 then serves for the next columns).
 #include "bitpar_common.cuh"
 
 namespace {
@@ -23,15 +24,19 @@ __global__ void bitpar_rows_kernel(const uint8_t* __restrict__ pattern,
                                    int P, const uint8_t* __restrict__ text,
                                    int TXT, const int* __restrict__ t_len,
                                    int B, int* __restrict__ out) {
+  __shared__ typename bpk::PeqVec<W>::T tab[bpk::kCodes][bpk::kThreads];
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= B) return;
+  const bpk::Peq<W> peq(tab, pattern + (size_t)i * P, P);
   bpk::State<W> s;
-  bpk::init(s, pattern + (size_t)i * P, P);
+  bpk::init(s, P);
   const int tl = t_len[i];
   const uint8_t* tr = text + (size_t)i * TXT;
   int best = bpk::start_best<TRACK_POS>(P);
+  uint32_t eq[W];
   for (int j = 0; j < TXT; ++j) {
-    bpk::step<W, FREE_START>(s, tr[j]);
+    peq.lookup(tr[j], eq);
+    bpk::step<W, FREE_START>(s, eq);
     bpk::offer<TRACK_POS>(best, s.score, j, tl);
   }
   out[i] = best;
@@ -40,7 +45,7 @@ __global__ void bitpar_rows_kernel(const uint8_t* __restrict__ pattern,
 template <int W, bool FREE_START, bool TRACK_POS>
 cudaError_t launch(const void* pattern, int P, const void* text, int TXT,
                    const void* t_len, int B, void* out, cudaStream_t stream) {
-  const int threads = 128;
+  const int threads = bpk::kThreads;
   bitpar_rows_kernel<W, FREE_START, TRACK_POS>
       <<<(B + threads - 1) / threads, threads, 0, stream>>>(
           static_cast<const uint8_t*>(pattern), P,

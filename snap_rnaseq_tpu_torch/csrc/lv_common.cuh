@@ -1,7 +1,14 @@
-// Banded Landau-Vishkin edit distance for one candidate per thread: the
-// shared core of the LV-lanes kernel (lv_lanes.cu) and the LV-CIGAR kernel
-// (lv_cigar.cu).  The probability backtrace (`backtrace`) also serves the
-// warp-per-row LV kernel (lv_onehot.cu), whose table is in shared memory.
+// Banded Landau-Vishkin pieces shared by the LV kernels:
+//   * `lv_one` (a whole row in one thread, its table in local memory),
+//     `fill_rows` and `LocalTab` serve K3, the LV-CIGAR kernel
+//     (lv_cigar.cu), alone;
+//   * `backtrace` serves K1, K3 and K5: K3 over its local table, K1
+//     (lv_lanes.cu) and K5 (lv_onehot.cu) from lane 0 over the level rows
+//     their warp wrote to shared memory (lv_warp.cuh);
+//   * `extend_run` (the four-byte XOR run) serves K3 and K1.
+// K3 runs one or two rows per call on the CIGAR paths, so its serial
+// latency costs little there; K1 and K5 moved to a warp per row
+// (lv_warp.cuh) because a thread per row spent the level loop serially.
 //
 // Semantics follow snap_rnaseq_tpu/ops/lv.py _lv_distance_jax exactly:
 //   * L[e][d] = furthest pattern index reached with e edits on diagonal d
@@ -19,10 +26,10 @@
 //     reference's BUGBUG clamp) and gap open/extend log-probabilities, in
 //     the same order of float additions as the plain version.
 //
-// Mismatches are found four bytes at a time: the pattern row and the text
-// row (with e_max leading sentinels, as the TPU kernel's textp) sit in
-// shared memory, a 32-bit XOR of the two compares four positions, and
-// __ffs of the XOR gives the first mismatching byte.
+// Mismatches are found four bytes at a time (K1, K3): the pattern row and
+// the text row (with e_max leading sentinels, as the TPU kernel's textp)
+// sit in shared memory, a 32-bit XOR of the two compares four positions,
+// and __ffs of the XOR gives the first mismatching byte.
 #pragma once
 
 #include <cstdint>

@@ -6,95 +6,49 @@
 // score_phase (models/single.py) calls with both seed-split directions.
 //
 // What bounds it on an H100: neither bytes nor arithmetic throughput but
-// latency and divergence.  Each row reads ~P + T bytes and writes 20, so
-// at the main-path shape (P = 100, T = 116) ~10^4 rows move ~2.5 MB, a
-// microsecond of HBM time; the work is a data-dependent DP of up to
-// e_max levels x D diagonals with early exits, so lanes of a warp idle
-// while the slowest row finishes.  Design: one candidate per thread (the
-// TPU layout put candidates on lanes too); the rows staged in shared
-// memory with coalesced loads; mismatches found four bytes at a time
-// (XOR + __ffs) instead of the TPU kernel's (D, W, C) bit-mask scratch;
-// the DP table kept per thread in local memory as int16 (L1-resident)
-// for the backtrace, which runs in the same thread so only five scalars
-// reach device memory.  A row stops at its winning level.
-#include "lv_common.cuh"
+// latency.  A row reads ~P + T bytes and writes 20, so at the paired
+// path's shapes (P = 100, T = 117, 2,048-16,384 rows) the bytes take about
+// a microsecond of HBM time; the work is a data-dependent DP of up to
+// e_max levels x D = 2 e_max + 1 diagonals with early exits.  Run serially
+// by one thread per row (the first design), a row's D diagonals and their
+// extensions queue one after another, and the kernel's time was the
+// latency of the slowest row, flat from 2,048 to 16,384 rows.
+//
+// Design: one warp per row, lanes over diagonals, in the loop K5 shares
+// (lv_warp.cuh): the rows are staged in the warp's shared memory, a level's
+// D diagonals run on D lanes at once, neighbours come by __shfl_sync, the
+// winner by __reduce_min_sync, and lane 0 runs the backtrace over the
+// shared level table.  What is K1's own is the extension, the `bits`
+// formulation of its TPU kernel: a lane runs its diagonal to the next
+// mismatch four bytes at a time (XOR + __ffs, lvk::extend_run) over the
+// staged rows.  K1 keeps no next-mismatch table: it saves K5's backward
+// scan of D x P entries per row and ~7 KB of shared memory per warp, and
+// pays in divergence, since a level waits for its longest extension.
+#include "lv_warp.cuh"
 
 namespace {
 
-template <int MAXE>
-__global__ void lv_lanes_kernel(const uint8_t* __restrict__ pattern,
-                                const int* __restrict__ p_len,
-                                const uint8_t* __restrict__ text,
-                                const int* __restrict__ t_len,
-                                const int* __restrict__ k,
-                                const float* __restrict__ qlp,
-                                const int* __restrict__ free_len,
-                                const int* __restrict__ prio_g, int B, int P,
-                                int T, int e_max, lvk::Consts cs,
-                                int* __restrict__ dist,
-                                int* __restrict__ e_fin,
-                                int* __restrict__ d_fin,
-                                float* __restrict__ logp,
-                                int* __restrict__ net) {
-  extern __shared__ __align__(16) uint8_t smem[];
-  const int D = 2 * e_max + 1;
-  int* prio = reinterpret_cast<int*>(smem);
-  uint8_t* rows = smem + lvk::round4(D * 4);
-  const int sp = lvk::round4(P + lvk::ROW_SLACK);
-  const int stride = sp + lvk::round4(e_max + T + lvk::ROW_SLACK);
-  const int row0 = blockIdx.x * blockDim.x;
-  const int nrows = min(static_cast<int>(blockDim.x), B - row0);
-  for (int d = threadIdx.x; d < D; d += blockDim.x) prio[d] = prio_g[d];
-  lvk::fill_rows(rows, stride, sp, pattern, P, text, T, t_len, e_max, row0,
-                 nrows);
-  __syncthreads();
-  if (static_cast<int>(threadIdx.x) >= nrows) return;
+struct XorRun {
+  const uint8_t* pat;
+  const uint8_t* txt;
+  int free_len;
 
-  const int i = row0 + threadIdx.x;
-  const uint8_t* pat = rows + threadIdx.x * stride;
-  lvk::LocalTab<MAXE> tab;
-  tab.D = D;
-  int8_t acts[MAXE + 1];
-  int16_t matched[MAXE + 1];
-  const lvk::Result r = lvk::lv_one(
-      pat, pat + sp, p_len[i], t_len[i], k[i], free_len ? free_len[i] : 0,
-      e_max, prio, qlp ? qlp + (size_t)i * P : nullptr, cs, tab, acts,
-      matched);
-  dist[i] = r.dist;
-  e_fin[i] = r.e_fin;
-  d_fin[i] = r.d_fin;
-  logp[i] = r.logp;
-  net[i] = r.net;
-}
+  __host__ __device__ static int scratch_bytes(int, int) { return 0; }
 
-template <int MAXE>
-cudaError_t launch(const void* pattern, const void* p_len, const void* text,
-                   const void* t_len, const void* k, const void* qlp,
-                   const void* free_len, const void* prio, int B, int P,
-                   int T, int e_max, lvk::Consts cs, void* dist, void* e_fin,
-                   void* d_fin, void* logp, void* net, cudaStream_t stream) {
-  const int D = 2 * e_max + 1;
-  const int row_bytes = lvk::round4(P + lvk::ROW_SLACK) +
-                        lvk::round4(e_max + T + lvk::ROW_SLACK);
-  int threads = 128;
-  while (threads > 32 && threads * row_bytes > 160 * 1024) threads /= 2;
-  const size_t smem = lvk::round4(D * 4) + (size_t)threads * row_bytes;
-  if (smem > 48 * 1024) {
-    cudaError_t e = cudaFuncSetAttribute(
-        lv_lanes_kernel<MAXE>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        static_cast<int>(smem));
-    if (e != cudaSuccess) return e;
+  __device__ XorRun(const uint8_t* pat_, const uint8_t* txt_, uint8_t*, int,
+                    int, int free_len_, int)
+      : pat(pat_), txt(txt_), free_len(free_len_) {}
+
+  // diagonal d's text row starts at txt + d (txt + e_max + (d - e_max))
+  __device__ int operator()(int d, int p, int end) const {
+    return lvk::extend_run(pat, txt + d, p, end, free_len);
   }
-  const int blocks = (B + threads - 1) / threads;
-  lv_lanes_kernel<MAXE><<<blocks, threads, smem, stream>>>(
-      static_cast<const uint8_t*>(pattern), static_cast<const int*>(p_len),
-      static_cast<const uint8_t*>(text), static_cast<const int*>(t_len),
-      static_cast<const int*>(k), static_cast<const float*>(qlp),
-      static_cast<const int*>(free_len), static_cast<const int*>(prio), B, P,
-      T, e_max, cs, static_cast<int*>(dist), static_cast<int*>(e_fin),
-      static_cast<int*>(d_fin), static_cast<float*>(logp),
-      static_cast<int*>(net));
-  return cudaGetLastError();
+};
+
+template <int NS>
+__global__ void lv_lanes_kernel(lvw::Args a) {
+  extern __shared__ __align__(16) uint8_t smem[];
+  lvw::lv_row<NS, XorRun>(a, smem);
 }
 
 }  // namespace
@@ -112,16 +66,12 @@ extern "C" int lv_lanes_launch(const void* pattern, const void* p_len,
                                void* d_fin, void* logp, void* net,
                                void* stream) {
   if (B <= 0) return 0;
-  if (e_max < 1 || e_max > 31) return static_cast<int>(cudaErrorInvalidValue);
-  const lvk::Consts cs{log_gap_open, log_gap_extend, log_one_minus_snp,
-                       qconst};
-  auto s = static_cast<cudaStream_t>(stream);
-  if (e_max <= 8)
-    return launch<8>(pattern, p_len, text, t_len, k, qlp, free_len, prio, B,
-                     P, T, e_max, cs, dist, e_fin, d_fin, logp, net, s);
-  if (e_max <= 16)
-    return launch<16>(pattern, p_len, text, t_len, k, qlp, free_len, prio, B,
-                      P, T, e_max, cs, dist, e_fin, d_fin, logp, net, s);
-  return launch<31>(pattern, p_len, text, t_len, k, qlp, free_len, prio, B,
-                    P, T, e_max, cs, dist, e_fin, d_fin, logp, net, s);
+  const lvw::Args a = lvw::make_args(
+      pattern, p_len, text, t_len, k, qlp, free_len, prio, B, P, T, e_max,
+      log_gap_open, log_gap_extend, log_one_minus_snp, qconst, dist, e_fin,
+      d_fin, logp, net);
+  if (!lvw::valid_shape(a)) return static_cast<int>(cudaErrorInvalidValue);
+  return static_cast<int>(lvw::launch<XorRun>(
+      2 * e_max + 1 <= 32 ? &lv_lanes_kernel<1> : &lv_lanes_kernel<2>, a,
+      static_cast<cudaStream_t>(stream)));
 }

@@ -17,12 +17,16 @@ anyway.
     result = min over columns j < t_len of score.
 
 `bitpar_distance_plain` is the plain PyTorch version (u32 words carried in
-int32, ops/u32.py).  Two dispatchers route by device, with no fallback:
+int32, ops/u32.py).  With a free start K2 splits each row's scan into
+chunks, each warmed up over the 2P columns before it (`scan_chunks`, whose
+geometry the plain version can replay with `first_col` and `warm`).  Two
+dispatchers route by device, with no fallback:
 
   bitpar_distance_words  packed 4-bit text rows.  CPU -> the nibble unpack
                          + plain version; CUDA -> K2 (csrc/bitpar_packed.cu)
                          in every form: forward or reversed, global or free
-                         start, with or without track_pos.
+                         start (split into chunks), with or without
+                         track_pos.
   bitpar_distance        (B, TXT) u8 code rows.  CPU -> the plain version;
                          CUDA -> K4 (csrc/bitpar_rows.cu).
 """
@@ -49,11 +53,43 @@ def pack_peq(pattern: torch.Tensor, P: int) -> torch.Tensor:
     return torch.stack(out, dim=1)
 
 
+# rescue-form threads K2 aims for: about 8 warps on each of an H100's 132
+# SMs, so the 4,096-row mate rescue does not run one warp per SM
+SCAN_THREADS = 32_768
+MIN_CHUNK = 32          # columns; shorter chunks would be mostly warm-up
+MAX_CHUNKS = 32         # a row's chunks share one warp
+
+
+def scan_chunks(B: int, P: int, TXT: int,
+                free_start: bool) -> tuple[int, int, int]:
+    """K2's scan geometry: (chunk_len, warm, n_chunks).
+
+    With a free start an optimal alignment costs at most P and so spans at
+    most 2P text columns; a scan restarted with fresh state `warm` = 2P
+    columns before a chunk gives the serial scan's score at each column of
+    the chunk.  Chunk q covers columns [q * chunk_len, (q + 1) * chunk_len)
+    (cut at TXT), scanned from max(0, q * chunk_len - warm).  n_chunks is a
+    power of two: the least that brings B * n_chunks to SCAN_THREADS,
+    keeping chunks of at least MIN_CHUNK columns.  A global start depends
+    on every earlier column: one chunk."""
+    if not free_start or TXT <= 0:
+        return max(TXT, 0), 0, 1
+    n_chunks = 1
+    while (n_chunks < MAX_CHUNKS and B * n_chunks < SCAN_THREADS
+           and -(-TXT // (2 * n_chunks)) >= MIN_CHUNK):
+        n_chunks *= 2
+    return -(-TXT // n_chunks), 2 * P, n_chunks
+
+
 def bitpar_distance_plain(pattern, text, t_len, *, P: int,
-                          track_pos: bool = False, free_start: bool = False):
+                          track_pos: bool = False, free_start: bool = False,
+                          first_col: int = 0, warm: int = 0):
     """Plain PyTorch version: the recurrence column by column.
 
-    pattern: (B, P) codes; text: (B, TXT) codes; t_len: (B,) int."""
+    pattern: (B, P) codes; text: (B, TXT) codes; t_len: (B,) int.  Text
+    column j is global column first_col + j (the number track_pos encodes
+    and t_len masks); the first `warm` columns are scanned but offer
+    nothing (one chunk of K2's split scan, scan_chunks)."""
     dev = pattern.device
     B, TXT = text.shape
     W = (P + 31) // 32
@@ -101,8 +137,11 @@ def bitpar_distance_plain(pattern, text, t_len, *, P: int,
         Mhs = shl1(Mh, zeros1)
         PV = Mhs | ~(Xv | Phs)
         MV = Phs & Xv
-        enc = (score * 4096 + j) if track_pos else score
-        best = torch.minimum(best, torch.where(j < t_len, enc, big))
+        if j < warm:
+            continue
+        col = first_col + j
+        enc = (score * 4096 + col) if track_pos else score
+        best = torch.minimum(best, torch.where(col < t_len, enc, big))
     return best
 
 
@@ -170,7 +209,7 @@ def bitpar_packed(pattern, words, t_len, *, P: int, TXT: int,
                   ) -> torch.Tensor:
     """K2 wrapper.  Counts the forward, global-start form as
     K2_bitpar_packed and any other form (the mate rescue's) as
-    K2_bitpar_rescue."""
+    K2_bitpar_rescue.  The scan geometry is scan_chunks'."""
     from . import kernels as kx
     dev = words.device
     if dev.type != "cuda":
@@ -182,11 +221,12 @@ def bitpar_packed(pattern, words, t_len, *, P: int, TXT: int,
     if packed_off < 0 or packed_off + TXT > 8 * NW:
         raise ValueError(f"columns [{packed_off}, {packed_off + TXT}) "
                          f"exceed {NW} packed words")
+    chunk_len, warm, n = scan_chunks(B, P, TXT, free_start)
     out = torch.empty(B, dtype=torch.int32, device=dev)
     err = kx.launcher("bitpar_packed")(
         kx.ptr(pattern), P, kx.ptr(words), NW, kx.ptr(t_len), TXT,
-        packed_off, int(reverse), int(free_start), int(track_pos), B,
-        kx.ptr(out), kx.stream())
+        packed_off, int(reverse), int(free_start), int(track_pos),
+        chunk_len, warm, n, B, kx.ptr(out), kx.stream())
     kx.check(err, "bitpar_packed_launch")
     rescue = reverse or free_start or track_pos
     kx.count_launch("K2_bitpar_rescue" if rescue else "K2_bitpar_packed")

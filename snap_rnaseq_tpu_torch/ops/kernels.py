@@ -5,7 +5,9 @@ library with a plain C interface, loaded with ctypes.  Libraries are built
 at first use from the package's own sources into `csrc/_build/`, keyed by
 a hash of the source, the shared headers and the flags, so an edited kernel
 is rebuilt and an unchanged one is reused.  `build_all()` starts one nvcc
-per source at once and waits for all of them.
+per source at once and waits for all of them.  Each build's compiler
+output (`-Xptxas -v`: registers and spills per kernel) is kept beside its
+library, and `ptxas_report(name)` reads it.
 
 Nothing here is imported by a kernel-free code path: the wrappers call
 `launcher(name)` only when they are handed a CUDA tensor.  It loads the
@@ -20,6 +22,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import threading
@@ -30,7 +33,8 @@ _HERE = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_HERE, "csrc")
 BUILD_DIR = os.path.join(CSRC, "_build")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC", "-lineinfo"]
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-lineinfo",
+              "-Xptxas", "-v"]
 
 # source file per library; each exports C functions returning cudaError_t
 SOURCES = {
@@ -40,7 +44,7 @@ SOURCES = {
     "bitpar_rows": "bitpar_rows.cu",      # K4
     "lv_onehot": "lv_onehot.cu",         # K5
 }
-_HEADERS = ("lv_common.cuh", "bitpar_common.cuh")
+_HEADERS = ("lv_common.cuh", "lv_warp.cuh", "bitpar_common.cuh")
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # launch function and argument types per library (see each source's
@@ -49,7 +53,7 @@ _SIGNATURES = {
     "lv_lanes": ("lv_lanes_launch", [_P] * 8 + [_I] * 4 + [_F] * 4
                  + [_P] * 6),
     "bitpar_packed": ("bitpar_packed_launch",
-                      [_P, _I, _P, _I, _P] + [_I] * 6 + [_P, _P]),
+                      [_P, _I, _P, _I, _P] + [_I] * 9 + [_P, _P]),
     "lv_cigar": ("lv_cigar_launch", [_P] * 7 + [_I] * 4 + [_F] * 4
                  + [_P] * 11),
     "bitpar_rows": ("bitpar_rows_launch", [_P, _I, _P, _I, _P] + [_I] * 3
@@ -115,10 +119,37 @@ def build_all(names=None) -> dict:
         if p.returncode != 0:
             errors.append(f"nvcc {SOURCES[name]} failed:\n{out.decode()}")
         else:
+            with open(so + ".log", "wb") as fh:      # ptxas -v's report
+                fh.write(out)
             os.replace(tmp, so)
     if errors:
         raise RuntimeError("\n".join(errors))
     return paths
+
+
+def ptxas_report(name: str) -> list:
+    """Registers and spill bytes of each kernel in library `name`, from
+    the `-Xptxas -v` output saved beside its build: a list of
+    {"function", "registers", "spill_stores", "spill_loads"}."""
+    rows, cur = [], None
+    with open(_so_path(name) + ".log") as fh:
+        for line in fh:
+            m = re.search(r"Compiling entry function '([^']+)'", line)
+            if m:
+                cur = {"function": m.group(1)}
+                rows.append(cur)
+                continue
+            if cur is None:
+                continue
+            m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                          line)
+            if m:
+                cur["spill_stores"] = int(m.group(1))
+                cur["spill_loads"] = int(m.group(2))
+            m = re.search(r"Used (\d+) registers", line)
+            if m:
+                cur["registers"] = int(m.group(1))
+    return rows
 
 
 def launcher(name: str):

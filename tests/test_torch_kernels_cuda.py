@@ -58,25 +58,64 @@ def _same_lv(got, want, fields):
                                atol=1e-5)
 
 
-@pytest.mark.parametrize("e_max,P,free,qual", [
-    (16, 100, True, "f32"), (16, 100, False, "u8"), (5, 32, True, None),
-    (31, 128, True, "f32"), (8, 64, False, None)])
-def test_k1_matches_plain(card, e_max, P, free, qual):
-    rng = np.random.default_rng(e_max * P)
+def _tie_cases(rng, B, P, T, e_max):
+    """Rows full of ties: pattern and text one tandem repeat of a 1-2 base
+    unit, the text with a few substitutions, so that many diagonals reach
+    p_len at the winning level and the diagonal priority decides."""
+    pats = np.zeros((B, P), np.uint8)
+    texts = np.zeros((B, T), np.uint8)
+    for i in range(B):
+        rep = np.resize(rng.integers(0, 4, int(rng.integers(1, 3))), T)
+        pats[i] = rep[:P]
+        texts[i] = rep
+        n_sub = int(rng.integers(1, e_max // 2 + 1))
+        pos = rng.integers(0, P, n_sub)
+        texts[i, pos] = (texts[i, pos] + rng.integers(1, 4, n_sub)) % 4
+    return pats, np.full(B, P, np.int32), texts, np.full(B, T, np.int32)
+
+
+@pytest.mark.parametrize("e_max,P,free,qual,ties", [
+    pytest.param(16, 100, True, "f32", False, id="16-100-True-f32"),
+    pytest.param(16, 100, False, "u8", False, id="16-100-False-u8"),
+    pytest.param(5, 32, True, None, False, id="5-32-True-None"),
+    pytest.param(31, 128, True, "f32", False, id="31-128-True-f32"),
+    pytest.param(8, 64, False, None, False, id="8-64-False-None"),
+    # D = 35: diagonals 32-34 in each lane's second slot
+    pytest.param(17, 100, True, "f32", False, id="17-100-True-f32"),
+    pytest.param(17, 100, False, "f32", True, id="17-100-ties"),
+    pytest.param(16, 100, False, None, True, id="16-100-ties")])
+def test_k1_matches_plain(card, e_max, P, free, qual, ties):
+    """K1 (one warp per row) through lv_distance's default switch against
+    the plain version; K5 does not launch."""
+    rng = np.random.default_rng(e_max * P + ties)
     B = 3000
-    pats, p_len, texts, t_len = _edit_cases(rng, B, P, P + e_max, e_max)
+    pats, p_len, texts, t_len = (_tie_cases if ties else _edit_cases)(
+        rng, B, P, P + e_max, e_max)
     to = lambda a: torch.from_numpy(a).to(card)
     quals = to(rng.integers(33, 74, (B, P)).astype(np.uint8))
     q = {"f32": lv.phred_log_prob_device(quals), "u8": quals, None: None}[qual]
     fr = to(rng.integers(0, P // 2, B).astype(np.int32)) if free else None
-    args = (to(pats), to(p_len), to(texts), to(t_len),
-            to(rng.integers(0, e_max + 1, B).astype(np.int32)), q)
-    before = kernels.LAUNCHES["K1_lv_lanes"]
+    k = rng.integers(0, e_max + 1, B).astype(np.int32)
+    if ties:
+        k[:] = e_max
+    args = (to(pats), to(p_len), to(texts), to(t_len), to(k), q)
+    before = dict(kernels.LAUNCHES)
     got = lv.lv_distance(*args, fr, e_max=e_max)
-    assert kernels.LAUNCHES["K1_lv_lanes"] == before + 1
-    want = lv._lv_distance_plain(*args, fr, e_max=e_max)
+    assert kernels.LAUNCHES["K1_lv_lanes"] == before["K1_lv_lanes"] + 1
+    assert kernels.LAUNCHES["K5_lv_onehot"] == before["K5_lv_onehot"]
+    want = lv._lv_distance_plain(*args, fr, e_max=e_max, keep_tables=ties)
     _same_lv(got, want, ("distance", "e_final", "d_final", "net_indel"))
-    assert (want.distance >= 0).any() and (want.distance < 0).any()
+    if not ties:
+        assert (want.distance >= 0).any() and (want.distance < 0).any()
+        return
+    # at the winning level, how many in-band diagonals reached p_len
+    D, e_fin = 2 * e_max + 1, want.e_final.long()
+    at_win = want.L[torch.arange(B, device=card), e_fin]          # (B, D)
+    band = (torch.arange(D, device=card)[None] - e_max).abs() <= e_fin[:, None]
+    reached = ((at_win >= to(p_len)[:, None]) & band).sum(dim=1)
+    found = want.distance > 0
+    assert found.float().mean() > 0.5
+    assert (reached[found] >= 2).float().mean() > 0.5
 
 
 @pytest.mark.parametrize("e_max", [16, 17, 31])
@@ -142,12 +181,17 @@ FLAGS = [(r, f, tr) for r in (False, True) for f in (False, True)
          for tr in (False, True)]
 
 
-@pytest.mark.parametrize("P,TXT,off", [(100, 1084, 0), (37, 300, 5)])
+@pytest.mark.parametrize("P,TXT,off", [
+    (100, 1084, 0), (37, 300, 5),
+    # 4,096 rows: 8 chunks, 1,088 = 8 x 136 columns, and either side
+    (100, 1087, 0), (100, 1088, 0), (100, 1089, 0)])
 @pytest.mark.parametrize("reverse,free_start,track_pos", FLAGS)
 def test_k2_every_form_matches_plain(card, P, TXT, off, reverse, free_start,
                                      track_pos):
     """K2 in each (reverse, free_start, track_pos) form, the mate rescue's
-    shape first, against the plain version on the scanned columns."""
+    shape first, against the plain version on the scanned columns.  With a
+    free start (the split scan) every fourth row holds the same copy
+    ending in chunks 1 and 3: the earliest best column must win."""
     rng = np.random.default_rng(P + 8 * reverse + 4 * free_start + track_pos)
     B = 4096
     NW = (off + TXT + 7) // 8 + 1
@@ -155,13 +199,19 @@ def test_k2_every_form_matches_plain(card, P, TXT, off, reverse, free_start,
     codes[rng.random(codes.shape) < 0.002] = 5
     pats = rng.integers(0, 4, (B, P), dtype=np.uint8)
     pats[rng.random((B, P)) < 0.01] = 4
+    chunk_len = bitpar.scan_chunks(B, P, TXT, True)[0]
     for i in range(0, B, 2):                   # the pattern planted, edited
         seg = pats[i] % 4
         flip = rng.random(P) < 0.04
         seg[flip] = (seg[flip] + 1) % 4
-        s = (off + int(rng.integers(0, TXT - P)) if free_start
-             else off + TXT - P if reverse else off)
-        codes[i, s:s + P] = seg[::-1] if reverse else seg
+        if free_start and i % 4 == 0:          # scanned columns' ends
+            starts = [off + TXT - e if reverse else off + e - P
+                      for e in (chunk_len + 3, 3 * chunk_len + 5)]
+        else:
+            starts = [off + int(rng.integers(0, TXT - P)) if free_start
+                      else off + TXT - P if reverse else off]
+        for s in starts:
+            codes[i, s:s + P] = seg[::-1] if reverse else seg
     words = pack_genome_4bit(codes.reshape(-1))[:B * NW].reshape(B, NW)
     t_len = rng.integers(TXT // 2, TXT + 1, B).astype(np.int32)
     pat, w = torch.from_numpy(pats).to(card), u32.from_numpy(words, card)

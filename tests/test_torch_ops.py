@@ -301,3 +301,79 @@ def test_compute_cigars_tokens(use_m):
     same(dt, dj)
     assert tt == tj
     assert any(tok and any(op in "ID" for _, op in tok) for tok in tt)
+
+
+# ---------------------------------------------------------------- split scan
+
+def _split_scan(pat, text, tl, P, track_pos, rows):
+    """K2's split scan replayed with the plain version: each chunk of
+    scan_chunks' geometry for a call of `rows` rows scanned from its
+    warm-up start, offering only its own columns under their global
+    numbers.  Returns the per-chunk results, (chunks, B)."""
+    TXT = text.shape[1]
+    L, warm, n = tbp.scan_chunks(rows, P, TXT, True)
+    out = []
+    for q in range(n):
+        c0, c1 = q * L, min(TXT, (q + 1) * L)
+        if c0 >= c1:
+            continue
+        lo = max(0, c0 - warm)
+        out.append(tbp.bitpar_distance_plain(
+            pat, text[:, lo:c1], tl, P=P, track_pos=track_pos,
+            free_start=True, first_col=lo, warm=c0 - lo))
+    return torch.stack(out)
+
+
+@pytest.mark.parametrize("reverse", [False, True])
+@pytest.mark.parametrize("P,TXT,rows,track_pos", [
+    (100, 1084, 4096, True),   # the mate rescue's call: 8 chunks of 136
+    (100, 1084, 24, True),     # few rows: 32 chunks of 34 columns
+    (12, 300, 24, True), (12, 300, 24, False)])
+def test_split_scan_equals_full_scan(P, TXT, rows, track_pos, reverse):
+    """The free-start scan cut into scan_chunks' chunks, each warmed up
+    over the 2P columns before it, gives the full scan's answer exactly:
+    on random, tandem-repeat and planted rows where the same copy of the
+    pattern ends in several chunks (ties: the earliest column wins)."""
+    rng = np.random.default_rng(P + TXT + 2 * reverse + track_pos)
+    B, off = 24, 3
+    L, warm, n = tbp.scan_chunks(rows, P, TXT, True)
+    assert warm == 2 * P and n * L >= TXT > (n - 1) * L
+    pats = rng.integers(0, 4, (B, P)).astype(np.uint8)
+    cols = rng.integers(0, 4, (B, TXT)).astype(np.uint8)
+    for i in range(B):
+        if i % 3 == 0:         # one edited copy, ending just past borders
+            seg = pats[i].copy()
+            seg[rng.integers(0, P, 2)] ^= 1
+            last = -P
+            for b in range(L, TXT, L):
+                s0 = b + int(rng.integers(1, 9)) - P
+                if s0 >= last + P and s0 + P <= TXT:
+                    cols[i, s0:s0 + P] = seg
+                    last = s0
+        elif i % 3 == 1:       # a tandem repeat, the pattern one of its runs
+            unit = rng.integers(0, 4, int(rng.integers(2, 7)))
+            rep = np.resize(unit, TXT + P).astype(np.uint8)
+            cols[i] = rep[:TXT]
+            pats[i] = rep[5:5 + P]
+            pats[i, rng.integers(0, P)] ^= 2
+    cols[rng.random(cols.shape) < 0.003] = 5
+    pats[rng.random(pats.shape) < 0.003] = 4
+    n_w = (off + TXT + 7) // 8 + 1
+    codes = np.zeros((B, n_w * 8), np.uint8)
+    codes[:, off:off + TXT] = cols[:, ::-1] if reverse else cols
+    words = jgg.pack_genome_4bit(codes.reshape(-1))[:B * n_w].reshape(B, n_w)
+    t_len = np.where(rng.random(B) < 0.3, rng.integers(TXT // 2, TXT, B),
+                     TXT).astype(np.int32)
+    kw = dict(P=P, TXT=TXT, packed_off=off, track_pos=track_pos,
+              free_start=True, reverse=reverse)
+    full = tbp.bitpar_distance_words(t(pats), t(words), t(t_len), **kw)
+    same(full, jbp.bitpar_distance_words(jnp.asarray(pats),
+                                         jnp.asarray(words),
+                                         jnp.asarray(t_len), **kw))
+    per_chunk = _split_scan(t(pats), t(cols), t(t_len), P, track_pos,
+                            rows)
+    same(per_chunk.min(dim=0).values, full)
+    if track_pos:              # the best score reached in two chunks
+        score = lambda x: x >> 12
+        ties = (score(per_chunk) == score(full)[None]).sum(dim=0)
+        assert (ties >= 2).any()
