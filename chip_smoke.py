@@ -10,15 +10,17 @@ failure; nothing is caught.
 1. Build: the hand-written kernels are compiled from csrc/ (one nvcc per
    source, all at once); prints the build seconds, the card's name and
    power limit, each kernel's registers and spills (`-Xptxas -v`) and the
-   SASS instructions per iteration of K2's and K4's column loops
-   (tools/sass_loops.py).
+   SASS instructions per iteration of K2's and K4's column loops and of
+   the innermost loops of the three LV kernels (tools/sass_loops.py).
 2. Kernel checks: K1 (LV-lanes), K2 (packed bitpar, forward and every
    mate-rescue form), K3 (LV-CIGAR), K4 (bitpar over code rows) and K5
-   (LV-lanes over a next-mismatch table) each against its plain PyTorch
+   (LV-lanes over per-diagonal mismatch masks) each against its plain PyTorch
    version on the card, on random edit cases that reach the edges
    (clipped texts, random k, pad codes, K1 at the rescue's e_max 17 with
-   free 0 / free = read length rows, K5 at e_max 16 and 17 with free
-   prefixes, also bit for bit against K1, both timed on the same rows);
+   free 0 / free = read length rows, K3 also at the CIGAR flushes' sizes
+   of 1, 2 and 150 rows with rows that fail, K5 at e_max 16 and 17 with
+   free prefixes at and beside a mask word's boundary and in both mask
+   builds, also bit for bit against K1, both timed on the same rows);
    integers must be bit-identical and log-probabilities within rtol/atol
    1e-5.  K2's rescue form is also run and timed at 1-32 chunks per row
    (the split scan), each count giving the same answer.
@@ -59,12 +61,16 @@ failure; nothing is caught.
    of each shape is recorded with a copy of its inputs.  Each recorded
    call is re-run on those inputs against the plain version (same
    tolerances) and both are timed with CUDA events; the bound is computed
-   from the same inputs.
-7. Prints the kernels line (each kernel's times are means per launch over
-   the call shapes of the path whose launches it reports: paired for K1,
-   K2 and K3, stringz for K4, RNA single under onehot for K5; K1 and both
-   K2 forms also at RNA paired's shapes), the card line, and last the
-   result line.
+   from the same inputs.  K3's levels per row are printed per path; K3 is
+   re-timed at the single path's calls with 1, 2, 4 and 8 warps per block
+   forced and under its own choice; K5's calls on RNA single under onehot
+   are re-run by both its mask builds and by K1 on the same inputs, timed
+   in turns.
+7. Prints the kernels line: per kernel, `by_path` holds every path that
+   launched it (launches, device and bound ms per launch weighted by
+   launches, lost ms = launches x (device - bound), its shapes), and the
+   top-level fields are taken at the path where it loses the most; then
+   the card line, and last the result line.
 """
 import contextlib
 import functools
@@ -87,6 +93,8 @@ READ_LEN = 100
 HBM_BYTES_PER_S = 3.35e12
 INT32_LANES_PER_SM = 64            # 4 partitions x 16 INT32 units (Hopper)
 TOL = 1e-5
+# K5's mask builds, as csrc/lv_onehot.cu lv_onehot_set_build takes them
+K5_XOR, K5_BALLOT = 1, 2
 
 
 def log(msg):
@@ -286,11 +294,29 @@ def check_k2(dev, rng):
                 within_e_max=int((want <= 16).sum()))
 
 
+K3_SCRIPT = ("distance", "e_final", "d_final", "net_indel", "acts",
+             "matched", "start_run")
+
+
+@functools.lru_cache(None)
+def lv_cases_module():
+    """tests/torch_lv_cases.py (numpy only): the CIGAR paths' rows."""
+    import importlib.util
+    spec = importlib.util.spec_from_file_location(
+        "torch_lv_cases", os.path.join(ROOT, "tests", "torch_lv_cases.py"))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
 def check_k3(dev, rng):
     """K3 at the CIGAR paths' width (io/sam.py, io/bulk.py): pattern and
     text rows of the read length, texts no longer than their reads, e_max
     = 31, k = 30, the CIGAR diagonal order; without the L/A tables, then
-    once more with tables=True."""
+    once more with tables=True.  Then at a flush's sizes, 1, 2 and 150
+    rows (tests/torch_lv_cases.py cigar_rows: short indels, a path right
+    of the centre diagonal and back, 10-30 edits, and rows that fail after
+    all 30 levels)."""
     import torch
     from snap_rnaseq_tpu_torch.ops import lv
     from snap_rnaseq_tpu_torch.ops.lv_cuda import lv_cigar
@@ -304,15 +330,28 @@ def check_k3(dev, rng):
     got = lv_cigar(*args, None, e_max=E)
     if got.L.shape[1] or got.A.shape[1]:
         raise AssertionError("K3 wrote tables it was not asked for")
-    for f in ("distance", "e_final", "d_final", "net_indel", "acts",
-              "matched", "start_run"):
+    for f in K3_SCRIPT:
         assert_same(f"K3 {f}", getattr(got, f), getattr(want, f))
     err = logp_err("K3", got.log_prob, want.log_prob)
     full = lv_cigar(*args, None, e_max=E, tables=True)
     for f in ("L", "A", "acts", "matched", "start_run"):
         assert_same(f"K3 tables {f}", getattr(full, f), getattr(want, f))
-    return dict(name="K3_lv_cigar", rows=B, max_abs_err=err,
-                indel_rows=int((want.net_indel != 0).sum()))
+    indel_rows, failed = int((want.net_indel != 0).sum()), 0
+    for n in (1, 2, 150):
+        c_args = [to(a) for a in lv_cases_module().cigar_rows(rng, n)]
+        c_args.append(to(np.full(n, E - 1, np.int32)))
+        want = lv._lv_distance_plain(*c_args, None, None, e_max=E,
+                                     cigar_order=True, keep_tables=True)
+        got = lv_cigar(*c_args, None, e_max=E)
+        for f in K3_SCRIPT:
+            assert_same(f"K3 {n} rows {f}", getattr(got, f),
+                        getattr(want, f))
+        err = max(err, logp_err(f"K3 {n} rows", got.log_prob,
+                                want.log_prob))
+        failed += int((want.distance < 0).sum())
+    return dict(name="K3_lv_cigar (10,240, then 1, 2, 150 rows)",
+                rows=B + 153, max_abs_err=err, indel_rows=indel_rows,
+                failing_rows=failed)
 
 
 def check_k1_rescue(dev, rng):
@@ -467,10 +506,13 @@ def check_k4(dev, rng):
 def check_k5(dev, rng):
     """K5 on edge cases at the RNA paths' widths: P = 100, T = P + e_max
     at e_max 16 (single) and 17 (paired), random k, clipped text windows,
-    a third of the rows with a free prefix (up to the whole read), f32
-    quality rows; against the plain version and, bit for bit (log
-    probabilities included), against K1 on the same rows."""
+    a third of the rows with a free prefix (up to the whole read; an
+    eighth at 31, 32, 33 or P, a mask word's boundary and either side),
+    f32 quality rows; against the plain version and, bit for bit (log
+    probabilities included), against K1 and K5's XOR mask build (the
+    default being the ballot build) on the same rows."""
     import torch
+    from snap_rnaseq_tpu_torch.ops import kernels as kx
     from snap_rnaseq_tpu_torch.ops import lv
     from snap_rnaseq_tpu_torch.ops.lv_cuda import lv_lanes, lv_lanes_onehot
     B, P = 40_960, READ_LEN
@@ -485,12 +527,20 @@ def check_k5(dev, rng):
                      rng.integers(0, E + 1, B)).astype(np.int32)
         free = np.where(rng.random(B) < 0.33, rng.integers(0, P + 1, B),
                         0).astype(np.int32)
+        # a mask word's boundary, either side of it, the whole read
+        free[:B // 8] = np.resize(np.array([31, 32, 33, P], np.int32),
+                                  B // 8)
         quals = rng.integers(35, 74, (B, P)).astype(np.uint8)
         args = (to(pats), to(np.full(B, P, np.int32)), to(texts), to(t_len),
                 to(k), lv.phred_log_prob_device(to(quals)), to(free))
         got = lv_lanes_onehot(*args, e_max=E)
         want = lv._lv_distance_plain(*args, e_max=E)
         k1 = lv_lanes(*args, e_max=E)
+        prev = kx.set_variant("lv_onehot", K5_XOR)
+        try:
+            xor = lv_lanes_onehot(*args, e_max=E)
+        finally:
+            kx.set_variant("lv_onehot", prev)
         ints = ("distance", "e_final", "d_final", "net_indel")
         for f in ints:
             assert_same(f"K5 e_max {E} {f}", getattr(got, f),
@@ -498,6 +548,8 @@ def check_k5(dev, rng):
         for f in ints + ("log_prob",):
             assert_same(f"K5 vs K1 e_max {E} {f}", getattr(got, f),
                         getattr(k1, f))
+            assert_same(f"K5 XOR build e_max {E} {f}",
+                        getattr(xor, f), getattr(got, f))
         err = max(err, logp_err(f"K5 e_max {E}", got.log_prob,
                                 want.log_prob))
         found += int((want.distance >= 0).sum())
@@ -599,6 +651,15 @@ def recorded_calls():
             setattr(mod, attr, fn)
 
 
+def lv_levels(want, k, e_max):
+    """The DP levels each LV row ran: to its winning level (0 for the
+    level-0 early-out), or to k (at least 1) when none won."""
+    dist = want.distance.cpu().numpy()
+    k = k.cpu().numpy()
+    return np.where(dist >= 0, want.e_final.cpu().numpy(),
+                    np.maximum(np.minimum(k, e_max), 1))
+
+
 def _plain_and_work(kernel, a):
     """The plain version of one recorded call, its comparison with the
     kernel's result, and the work this call's data needs: (plain fn,
@@ -623,14 +684,10 @@ def _plain_and_work(kernel, a):
             return logp_err(kernel, got.log_prob, want.log_prob)
 
         def work(want):
-            # the DP levels each row ran (to the winning level, or to k
-            # when none wins); inputs once (pattern, text, quality rows,
-            # i32 vectors), outputs once (five scalars; K3 also the start
-            # run and the (acts, matched) script)
-            dist = want.distance.cpu().numpy()
-            k = a["k"].cpu().numpy()
-            levels = np.where(dist >= 0, want.e_final.cpu().numpy(),
-                              np.maximum(np.minimum(k, E), 1))
+            # the DP levels each row ran; inputs once (pattern, text,
+            # quality rows, i32 vectors), outputs once (five scalars; K3
+            # also the start run and the (acts, matched) script)
+            levels = lv_levels(want, a["k"], E)
             q_bytes = 0 if q is None else q.element_size() * P
             n_vec = 3 + (not cigar and a["free"] is not None)
             out = 24 + 8 * E if cigar else 20
@@ -671,20 +728,27 @@ def call_shape(a):
     return [B, P, int(a["text"].shape[1])]
 
 
+def on_card(rec):
+    """A recorded call's arguments, its tensors moved back to the card."""
+    import torch
+    return {k: v.cuda() if isinstance(v, torch.Tensor) else v
+            for k, v in rec["args"].items()}
+
+
 def check_path_calls(path, calls):
     """Every call shape recorded on a main path, re-run on its recorded
     inputs: the kernel against its plain version (bit-identical integers,
     log-probabilities within TOL) and both timed with CUDA events.  Per
     kernel, the times and bounds are means per launch over the path's
     calls, each shape weighted by how often the path launched it."""
-    import torch
-    per = {}
+    per, k3_levels = {}, []
     for rec in calls.values():
         kernel = rec["kernel"]
-        a = {k: v.cuda() if isinstance(v, torch.Tensor) else v
-             for k, v in rec["args"].items()}
+        a = on_card(rec)
         plain, compare, work = _plain_and_work(kernel, a)
         want = plain()
+        if kernel == "K3_lv_cigar":
+            k3_levels.append(lv_levels(want, a["k"], a["e_max"]))
         err = compare(rec["fn"](**a), want)
         ms = time_ms(lambda: rec["fn"](**a), 20)
         dev_ms = device_ms(lambda: rec["fn"](**a), 20)
@@ -696,6 +760,15 @@ def check_path_calls(path, calls):
             f"{b_ms:.5f} ms ({b_by}), max_abs_err {err}")
         per.setdefault(kernel, []).append(
             (rec["n"], ms, plain_ms, b_ms, b_by, err, shape, dev_ms))
+    if k3_levels:
+        # what sets a K3 call's time: its slowest row's levels
+        lv_all = np.concatenate(k3_levels)
+        log(f"{path} K3 levels per row (winning level, or k for rows that "
+            f"fail) over the {len(k3_levels)} recorded calls: "
+            f"{json.dumps(np.bincount(lv_all).tolist())} (rows at level "
+            f"0, 1, ...); rows {lv_all.size}, failing or at k "
+            f"{int((lv_all >= 30).sum())}; slowest row per call "
+            f"{[int(x.max()) for x in k3_levels]}")
     out = {}
     for kernel, rows in per.items():
         n = sum(r[0] for r in rows)
@@ -706,6 +779,73 @@ def check_path_calls(path, calls):
                            device_ms=mean(7),
                            max_abs_err=max(r[5] for r in rows),
                            shapes=[r[6] + [r[0]] for r in rows])
+    return out
+
+
+def k3_warp_sweep(calls):
+    """K3 at the single path's recorded calls with 1, 2, 4 and 8 warps per
+    block forced, then under its own choice (min(8, ceil(B / SMs))):
+    device ms per launch, weighted by the path's launches; each setting
+    must give the same script and scalars."""
+    from snap_rnaseq_tpu_torch.ops import kernels as kx
+    recs = [r for r in calls.values() if r["kernel"] == "K3_lv_cigar"]
+    cases = [(r["n"], r["fn"], on_card(r)) for r in recs]
+    refs = [fn(**a) for _, fn, a in cases]
+    n_all = sum(n for n, _, _ in cases)
+    sweep = {}
+    try:
+        for w in (1, 2, 4, 8, 0):
+            kx.set_variant("lv_cigar", w)
+            ms = 0.0
+            for (n, fn, a), ref in zip(cases, refs):
+                got = fn(**a)
+                for f in K3_SCRIPT + ("log_prob",):
+                    assert_same(f"K3 at {w} warps a block, {f}",
+                                getattr(got, f), getattr(ref, f))
+                ms += n * device_ms(lambda: fn(**a), 20)
+            sweep[str(w) if w else "own choice"] = ms / n_all
+    finally:
+        kx.set_variant("lv_cigar", 0)
+    log(f"K3 at the single path's {len(cases)} call shapes ("
+        f"{sorted(a['pattern'].shape[0] for _, _, a in cases)} rows), "
+        "device ms per launch by warps per block: " + json.dumps(sweep))
+    return sweep
+
+
+def k5_vs_k1(calls):
+    """K5's recorded calls on RNA single under onehot, re-run on the same
+    inputs by K5's XOR and ballot mask builds and by K1, timed in turns
+    (XOR, ballot, K1, K1, ballot, XOR); all three give the same outputs,
+    log-probabilities included.  Device ms per launch of each, per shape."""
+    from snap_rnaseq_tpu_torch.ops import kernels as kx
+    from snap_rnaseq_tpu_torch.ops import lv_cuda
+    out = {}
+    fields = ("distance", "e_final", "d_final", "net_indel", "log_prob")
+    for rec in calls.values():
+        if rec["kernel"] != "K5_lv_onehot":
+            continue
+        a = on_card(rec)
+        runs = {"K5 XOR": (lv_cuda.lv_lanes_onehot, K5_XOR),
+                "K5 ballot": (lv_cuda.lv_lanes_onehot, K5_BALLOT),
+                "K1": (lv_cuda.lv_lanes, 0)}
+        ref = lv_cuda.lv_lanes(**a)
+        ms = {name: [] for name in runs}
+        try:
+            for name in list(runs) + list(runs)[::-1]:
+                fn, build = runs[name]
+                kx.set_variant("lv_onehot", build)
+                got = fn(**a)
+                for f in fields:
+                    assert_same(f"{name} vs K1 {f}", getattr(got, f),
+                                getattr(ref, f))
+                ms[name].append(device_ms(lambda: fn(**a), 20))
+        finally:
+            kx.set_variant("lv_onehot", 0)
+        shape = call_shape(a)
+        out[f"{shape[0]} rows x{rec['n']}"] = {
+            k: sum(v) / len(v) for k, v in ms.items()}
+    log("RNA single's K5 call shapes, device ms per launch (K5 by mask "
+        "build, and K1 on the same inputs): " + json.dumps(out))
     return out
 
 
@@ -966,8 +1106,6 @@ def write_fasta(path, codes, name="ref"):
 
 SINGLE_PATH = ("K1_lv_lanes", "K2_bitpar_packed", "K3_lv_cigar")
 PAIRED_PATH = SINGLE_PATH + ("K2_bitpar_rescue",)
-# redesigned kernels the kernels line also times at RNA paired's shapes
-RNA_PAIRED_TOO = ("K1_lv_lanes", "K2_bitpar_packed", "K2_bitpar_rescue")
 STRINGZ_PATH = ("K4_bitpar_rows",)
 
 
@@ -1471,8 +1609,9 @@ def kernel_label(mangled):
 
 def build_report(libs):
     """Each kernel's registers and spill bytes from the build (`-Xptxas
-    -v`), and the SASS size of K2's and K4's innermost loops
-    (tools/sass_loops.py; W = 3 and 4, i.e. P = 65-128)."""
+    -v`), and the SASS size of the innermost loops of K2 and K4
+    (tools/sass_loops.py; W = 3 and 4, i.e. P = 65-128) and of every LV
+    kernel instance (K1, K3, K5)."""
     from snap_rnaseq_tpu_torch.ops import kernels as kx
     from snap_rnaseq_tpu_torch.tools import sass_loops
     for name in kx.SOURCES:
@@ -1484,12 +1623,41 @@ def build_report(libs):
     if sass_loops.cuobjdump() is None:
         log("sass: cuobjdump not found")
         return
-    for name in ("bitpar_packed", "bitpar_rows"):
+    for name in ("bitpar_packed", "bitpar_rows", "lv_lanes", "lv_cigar",
+                 "lv_onehot"):
         for fn, loops in sass_loops.report(libs[name]).items():
             label = kernel_label(fn)
-            if "<3," in label or "<4," in label:
+            if name.startswith("lv") or "<3," in label or "<4," in label:
                 log(f"sass {label}: loop bodies of "
                     f"{[n for n, _ in loops]} instructions")
+
+
+def kernel_entry(name, source, replaces, by_path, at_path):
+    """A kernel's entry of the kernels line: `by_path` over every path
+    that launched it (every launch recorded, or this raises), and the
+    top-level fields at the path where it loses the most."""
+    by = {}
+    for path, launches in by_path.items():
+        n, c = launches[name], at_path[path].get(name)
+        if n == 0 and c is None:
+            continue
+        if c is None or c["calls"] != n:
+            raise AssertionError(f"{name}: {c['calls'] if c else 0} of the "
+                                 f"{path} path's {n} launches were "
+                                 "recorded")
+        by[path] = dict(launches=n, device_ms=c["device_ms"],
+                        bound_ms=c["bound_ms"],
+                        lost_ms=n * (c["device_ms"] - c["bound_ms"]),
+                        ms=c["ms"], plain_ms=c["plain_ms"],
+                        max_abs_err=c["max_abs_err"], shapes=c["shapes"])
+    path = max(by, key=lambda p: by[p]["lost_ms"])
+    c = at_path[path][name]
+    return dict(name=name, route="cuda", source=source, replaces=replaces,
+                launches=by[path]["launches"], max_abs_err=c["max_abs_err"],
+                ms=c["ms"], plain_ms=c["plain_ms"], bound_ms=c["bound_ms"],
+                bound_by=c["bound_by"], library_ms=None,
+                device_ms=c["device_ms"], path=path, shapes=c["shapes"],
+                by_path=by)
 
 
 # ---------------------------------------------------------------- main
@@ -1553,34 +1721,12 @@ def main():
     at_path = {p: check_path_calls(p, c) for p, c in (
         ("single", single_calls), ("paired", paired_calls),
         ("stringz", sz_calls), *rna_calls.items())}
+    k3_warp_sweep(single_calls)
+    k5_vs_k1(rna_calls["rna_single_onehot"])
     log(f"total: {time.time() - t_start:.1f} s")
 
-    # each kernel at the path whose launches it reports: the paired path
-    # for the kernels it runs, stringz for K4, RNA single under onehot for
-    # K5
-    kernels = []
-    for name, (source, replaces) in KERNEL_INFO.items():
-        path = ("stringz" if name in STRINGZ_PATH else "rna_single_onehot"
-                if name == "K5_lv_onehot" else "paired")
-        c = at_path[path][name]
-        if c["calls"] != by_path[path][name]:
-            raise AssertionError(f"{name}: {c['calls']} of the {path} "
-                                 f"path's {by_path[path][name]} launches "
-                                 "were recorded")
-        k = dict(
-            name=name, route="cuda", source=source, replaces=replaces,
-            launches=by_path[path][name], max_abs_err=c["max_abs_err"],
-            ms=c["ms"], plain_ms=c["plain_ms"], bound_ms=c["bound_ms"],
-            bound_by=c["bound_by"], library_ms=None,
-            device_ms=c["device_ms"], path=path,
-            shapes=c["shapes"],
-            launches_by_path={p: v[name] for p, v in by_path.items()})
-        if name in RNA_PAIRED_TOO:
-            r = at_path["rna_paired"][name]
-            k.update(rna_paired_device_ms=r["device_ms"],
-                     rna_paired_bound_ms=r["bound_ms"],
-                     rna_paired_shapes=r["shapes"])
-        kernels.append(k)
+    kernels = [kernel_entry(name, source, replaces, by_path, at_path)
+               for name, (source, replaces) in KERNEL_INFO.items()]
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -1,14 +1,11 @@
-// Banded Landau-Vishkin pieces shared by the LV kernels:
-//   * `lv_one` (a whole row in one thread, its table in local memory),
-//     `fill_rows` and `LocalTab` serve K3, the LV-CIGAR kernel
-//     (lv_cigar.cu), alone;
-//   * `backtrace` serves K1, K3 and K5: K3 over its local table, K1
-//     (lv_lanes.cu) and K5 (lv_onehot.cu) from lane 0 over the level rows
-//     their warp wrote to shared memory (lv_warp.cuh);
-//   * `extend_run` (the four-byte XOR run) serves K3 and K1.
-// K3 runs one or two rows per call on the CIGAR paths, so its serial
-// latency costs little there; K1 and K5 moved to a warp per row
-// (lv_warp.cuh) because a thread per row spent the level loop serially.
+// Banded Landau-Vishkin pieces shared by the LV kernels, which all run
+// one warp per row over the level loop of lv_warp.cuh:
+//   * `backtrace` (over any table with L(e, d)) serves K1 (lv_lanes.cu),
+//     K3 (lv_cigar.cu) and K5 (lv_onehot.cu): lane 0 runs it over the
+//     level rows its warp wrote to shared memory; `act_from` also gives K3
+//     its action table;
+//   * `extend_run` (the four-byte XOR run) is the extension of K1 and K3;
+//     K5 extends over its per-diagonal mismatch masks instead.
 //
 // Semantics follow snap_rnaseq_tpu/ops/lv.py _lv_distance_jax exactly:
 //   * L[e][d] = furthest pattern index reached with e edits on diagonal d
@@ -71,47 +68,6 @@ __device__ __forceinline__ int extend_run(const uint8_t* pat,
   }
   return end;
 }
-
-// Copy the block's pattern and text rows into shared memory, coalesced:
-// pattern rows are P bytes (zero slack), text rows are e_max sentinels, the
-// text masked to t_len, then sentinels (255 never equals a base code).
-__device__ inline void fill_rows(uint8_t* smem, int stride, int sp,
-                                 const uint8_t* pattern, int P,
-                                 const uint8_t* text, int T,
-                                 const int* t_len, int e_max, int row0,
-                                 int nrows) {
-  const int st = stride - sp;
-  for (int i = threadIdx.x; i < nrows * sp; i += blockDim.x) {
-    const int r = i / sp, c = i - r * sp;
-    smem[r * stride + c] = c < P ? pattern[(size_t)(row0 + r) * P + c] : 0;
-  }
-  for (int i = threadIdx.x; i < nrows * st; i += blockDim.x) {
-    const int r = i / st, c = i - r * st;
-    const int t = c - e_max;
-    int tl = t_len[row0 + r];
-    tl = tl < T ? tl : T;
-    smem[r * stride + sp + c] =
-        (t >= 0 && t < tl) ? text[(size_t)(row0 + r) * T + t] : 255;
-  }
-}
-
-struct Result {
-  int dist, e_fin, d_fin, net;
-  float logp;
-  int last;   // last level computed; later levels equal it (frozen)
-};
-
-// Per-thread DP table in local memory (L1-resident, write-back), int16:
-// L values stay within [-2, P + e_max].
-template <int MAXE>
-struct LocalTab {
-  int16_t l[(MAXE + 1) * (2 * MAXE + 1)];
-  int D;
-  __device__ int L(int e, int d) const { return l[e * D + d]; }
-  __device__ void setL(int e, int d, int v) {
-    l[e * D + d] = static_cast<int16_t>(v);
-  }
-};
 
 // The action a level takes at diagonal d, from the previous level `prev`
 // alone: the best of up (X), left (D), right (I), first wins ties.  Tab is
@@ -195,66 +151,6 @@ __device__ void backtrace(const Tab& tab, int D, int e_max, int p_len,
   if (dist < 0) logp = NEG_INF;
   *logp_out = logp;
   *net_out = net;
-}
-
-// One row: fills tab's levels 0..last (the row stops at the level where
-// it is done; the TPU kernels' where(done, L, best) keeps every later level
-// equal to that one) and returns the five scalars.
-template <int MAXE>
-__device__ Result lv_one(const uint8_t* pat, const uint8_t* txt, int p_len,
-                         int t_len, int k, int free_len, int e_max,
-                         const int* prio, const float* qlp,
-                         const Consts& cs, LocalTab<MAXE>& tab,
-                         int8_t* acts, int16_t* matched) {
-  const int D = 2 * e_max + 1;
-  const int center = e_max;
-  k = k < e_max ? k : e_max;
-  const int end0 = p_len < t_len ? p_len : t_len;
-  const int first_mm = extend_run(pat, txt + e_max, 0, end0, free_len);
-  for (int d = 0; d < D; ++d) tab.setL(0, d, d == center ? first_mm : -2);
-  const bool perfect = first_mm >= end0;
-  const int perfect_dist = p_len - end0 > 0 ? p_len - end0 : 0;
-  const bool perfect_ok = perfect && perfect_dist <= k;
-  bool done = perfect;
-  int dist = perfect_ok ? perfect_dist : -1, e_fin = 0, d_fin = 0;
-  int last = 0;
-
-  for (int e = 1; e <= e_max && !done; ++e) {
-    int best_prio = 0x7FFFFFFF, win = 0;
-    bool any = false;
-    for (int d = 0; d < D; ++d) {
-      const int up = tab.L(e - 1, d) + 1;
-      const int left = d > 0 ? tab.L(e - 1, d - 1) : -2;
-      const int right = d < D - 1 ? tab.L(e - 1, d + 1) + 1 : -1;
-      int best = up > left ? up : left;
-      best = best > right ? best : right;
-      const int dd = d - center;
-      const bool in_band = (dd < 0 ? -dd : dd) <= e;
-      if (!in_band) {
-        best = -2;
-      } else if (best >= 0) {
-        int end_d = t_len - dd;
-        end_d = p_len < end_d ? p_len : end_d;
-        if (best < end_d)
-          best = extend_run(pat, txt + e_max + dd, best, end_d, free_len);
-      }
-      if (in_band && best >= p_len && e <= k && prio[d] < best_prio) {
-        best_prio = prio[d];
-        win = d;
-        any = true;
-      }
-      tab.setL(e, d, best);
-    }
-    last = e;
-    if (any) { dist = e; e_fin = e; d_fin = win - center; }
-    done = any || e >= k;
-  }
-
-  float logp;
-  int net;
-  backtrace(tab, D, e_max, p_len, free_len, dist, e_fin, d_fin, perfect,
-            perfect_ok, qlp, cs, acts, matched, &logp, &net);
-  return Result{dist, e_fin, d_fin, net, logp, last};
 }
 
 }  // namespace lvk

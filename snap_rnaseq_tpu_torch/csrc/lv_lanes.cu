@@ -14,41 +14,25 @@
 // extensions queue one after another, and the kernel's time was the
 // latency of the slowest row, flat from 2,048 to 16,384 rows.
 //
-// Design: one warp per row, lanes over diagonals, in the loop K5 shares
-// (lv_warp.cuh): the rows are staged in the warp's shared memory, a level's
-// D diagonals run on D lanes at once, neighbours come by __shfl_sync, the
+// Design: one warp per row, lanes over diagonals, in the loop K3 and K5
+// share (lv_warp.cuh): the rows are staged in the warp's shared memory, a
+// level's D diagonals run on D lanes at once, neighbours come by
+// __shfl_sync, the
 // winner by __reduce_min_sync, and lane 0 runs the backtrace over the
 // shared level table.  What is K1's own is the extension, the `bits`
-// formulation of its TPU kernel: a lane runs its diagonal to the next
-// mismatch four bytes at a time (XOR + __ffs, lvk::extend_run) over the
-// staged rows.  K1 keeps no next-mismatch table: it saves K5's backward
-// scan of D x P entries per row and ~7 KB of shared memory per warp, and
-// pays in divergence, since a level waits for its longest extension.
+// formulation of its TPU kernel (lvw::XorRun, which K3 shares): a lane
+// runs its diagonal to the next mismatch four bytes at a time (XOR +
+// __ffs, lvk::extend_run) over the staged rows.  K1 builds no mismatch
+// masks: it saves K5's build of D x P/32 words per row and pays in
+// divergence, since a level waits for its longest extension.
 #include "lv_warp.cuh"
 
 namespace {
 
-struct XorRun {
-  const uint8_t* pat;
-  const uint8_t* txt;
-  int free_len;
-
-  __host__ __device__ static int scratch_bytes(int, int) { return 0; }
-
-  __device__ XorRun(const uint8_t* pat_, const uint8_t* txt_, uint8_t*, int,
-                    int, int free_len_, int)
-      : pat(pat_), txt(txt_), free_len(free_len_) {}
-
-  // diagonal d's text row starts at txt + d (txt + e_max + (d - e_max))
-  __device__ int operator()(int d, int p, int end) const {
-    return lvk::extend_run(pat, txt + d, p, end, free_len);
-  }
-};
-
 template <int NS>
 __global__ void lv_lanes_kernel(lvw::Args a) {
   extern __shared__ __align__(16) uint8_t smem[];
-  lvw::lv_row<NS, XorRun>(a, smem);
+  lvw::lv_row<NS, lvw::XorRun>(a, smem);
 }
 
 }  // namespace
@@ -71,7 +55,7 @@ extern "C" int lv_lanes_launch(const void* pattern, const void* p_len,
       log_gap_open, log_gap_extend, log_one_minus_snp, qconst, dist, e_fin,
       d_fin, logp, net);
   if (!lvw::valid_shape(a)) return static_cast<int>(cudaErrorInvalidValue);
-  return static_cast<int>(lvw::launch<XorRun>(
+  return static_cast<int>(lvw::launch<lvw::XorRun>(
       2 * e_max + 1 <= 32 ? &lv_lanes_kernel<1> : &lv_lanes_kernel<2>, a,
       static_cast<cudaStream_t>(stream)));
 }

@@ -1,4 +1,4 @@
-// K5: LV-lanes, next-mismatch-table form — the same function as K1
+// K5: LV-lanes, mismatch-mask form — the same function as K1
 // (lv_lanes.cu): banded Landau-Vishkin distance up to min(k, e_max) with a
 // per-row free prefix, priority-ordered diagonal ties and the fused
 // probability backtrace; five scalars out per row (dist, e_fin, d_fin,
@@ -13,63 +13,111 @@
 //
 // What bounds it on an H100: as for K1, latency, not bytes or arithmetic
 // throughput (a row reads ~P + T bytes and writes 20).  Design: one warp
-// per row, lanes over diagonals, in the loop K1 shares (lv_warp.cuh).
-// What is K5's own is the extension: each lane first builds the
-// next-mismatch rows of its diagonals, int16, in the warp's scratch by one
-// backward scan over the pattern (positions below the free prefix always
-// match; the row stride is an odd number of words, so the 32 lanes' writes
-// of one column hit 32 banks); a level then extends with one shared-memory
-// load clipped to end_d.  The table (D x P int16, ~7 KB a warp at P = 100,
-// e_max 17) is what fewer warps per SM pay for the single lookup.
+// per row, lanes over diagonals, in the loop K1 and K3 share
+// (lv_warp.cuh).  What is K5's own is the extension, the TPU kernel's
+// suffix-min expressed in the SM's bit operations: the warp first builds,
+// in its scratch, one 32-bit mismatch mask per diagonal and 32 pattern
+// positions (bit b of word w on diagonal d: p = 32 w + b < P, p >= free,
+// pat[p] != txt[p + d]; the sentinels and the text past t_len are 255, so
+// they mismatch), and a level extends to the first set bit at or after p
+// (__ffs of the word shifted by p & 31, then the following words), clipped
+// to end_d.  The masks take D x ceil(P/32) words, 560 bytes a warp at P =
+// 100 and e_max 17.  Two builds of the same masks:
+//   * ballot (the default): for each (word, diagonal) lane b compares
+//     position 32 w + b and __ballot_sync gathers the word;
+//   * XOR: each lane takes (word, diagonal) pairs and assembles a word
+//     from eight four-byte XORs (lvk::load4), one bit per nonzero byte.
+// At RNA single's 8,192 rows the ballot build ran 0.0302 ms a launch and
+// the XOR build 0.0366 (H100 80GB HBM3, 700 W; chip_smoke.py k5_vs_k1).
 #include "lv_warp.cuh"
 
 namespace {
 
-// next-mismatch row stride in int16 entries: >= P, even, and an odd number
-// of 4-byte words
-__host__ __device__ inline int nm_stride(int P) {
-  int s = (P + 1) & ~1;
-  if ((s / 2) % 2 == 0) s += 2;
-  return s;
-}
+// mask build forced by lv_onehot_set_build (0: the default)
+int g_build = 0;
+constexpr int BUILD_XOR = 1, BUILD_BALLOT = 2;
 
-// nm[d][p] = the first q >= p with q >= free and txt[q + d] != pat[q],
-// else P; built by each lane for its diagonals
-struct NextMismatch {
-  const int16_t* nm;
-  int stride;
+__host__ __device__ inline int mask_words(int P) { return (P + 31) >> 5; }
+
+// the mismatch masks, word-major (word w of diagonal d at w * D + d, so
+// lanes on the same word read distinct banks)
+template <bool BALLOT>
+struct MismatchMasks {
+  const uint32_t* m;
+  int D;
 
   __host__ __device__ static int scratch_bytes(int P, int e_max) {
-    return (2 * e_max + 1) * nm_stride(P) * 2;
+    return (2 * e_max + 1) * mask_words(P) * 4;
   }
 
-  __device__ NextMismatch(const uint8_t* pat, const uint8_t* txt,
-                          uint8_t* scratch, int P, int e_max, int free_len,
-                          int lane)
-      : nm(reinterpret_cast<const int16_t*>(scratch)), stride(nm_stride(P)) {
-    int16_t* tab = reinterpret_cast<int16_t*>(scratch);
-    for (int d = lane; d < 2 * e_max + 1; d += 32) {
-      int16_t* nrow = tab + d * stride;
-      int cur = P;
-      for (int p = P - 1; p >= 0; --p) {
-        if (p >= free_len && txt[p + d] != pat[p]) cur = p;
-        nrow[p] = static_cast<int16_t>(cur);
+  __device__ MismatchMasks(const uint8_t* pat, const uint8_t* txt,
+                           uint8_t* scratch, int P, int e_max, int free_len,
+                           int lane)
+      : m(reinterpret_cast<const uint32_t*>(scratch)), D(2 * e_max + 1) {
+    uint32_t* out = reinterpret_cast<uint32_t*>(scratch);
+    const int NW = mask_words(P);
+    if constexpr (BALLOT) {
+      for (int w = 0; w < NW; ++w) {
+        const int p = 32 * w + lane;
+        const bool live = p < P && p >= free_len;
+        const uint8_t c = live ? pat[p] : 0;
+        for (int d = 0; d < D; ++d) {
+          const uint32_t bits =
+              __ballot_sync(lvw::FULL, live && txt[p + d] != c);
+          if (lane == (d & 31)) out[w * D + d] = bits;
+        }
+      }
+    } else {
+      for (int i = lane; i < NW * D; i += 32) {
+        const int w = i / D, d = i - w * D;
+        const int p0 = 32 * w;
+        const int n = min(32, P - p0);
+        uint32_t bits = 0;
+        for (int j = 0; j < n; j += 4) {
+          // byte q of x is nonzero iff positions p0 + j + q differ; fold
+          // each byte onto its low bit, then gather the four low bits
+          uint32_t x =
+              lvk::load4(pat + p0 + j) ^ lvk::load4(txt + d + p0 + j);
+          x |= x >> 4;
+          x |= x >> 2;
+          x |= x >> 1;
+          bits |= (((x & 0x01010101u) * 0x01020408u) >> 24) << j;
+        }
+        if (n < 32) bits &= (1u << n) - 1u;          // past P
+        const int nf = free_len - p0;                  // the free prefix
+        if (nf > 0) bits = nf >= 32 ? 0u : bits & (0xFFFFFFFFu << nf);
+        out[i] = bits;
       }
     }
   }
 
   __device__ int operator()(int d, int p, int end) const {
-    return min(static_cast<int>(nm[d * stride + p]), end);
+    int w = p >> 5, q = p;
+    uint32_t x = m[w * D + d] >> (p & 31);
+    while (x == 0) {
+      q = 32 * ++w;
+      if (q >= end) return end;
+      x = m[w * D + d];
+    }
+    return min(q + __ffs(x) - 1, end);
   }
 };
 
-template <int NS>
+template <int NS, bool BALLOT>
 __global__ void lv_onehot_kernel(lvw::Args a) {
   extern __shared__ __align__(16) uint8_t smem[];
-  lvw::lv_row<NS, NextMismatch>(a, smem);
+  lvw::lv_row<NS, MismatchMasks<BALLOT>>(a, smem);
 }
 
 }  // namespace
+
+// For measurement: force the XOR (1) or the ballot (2) mask build, or 0
+// for the default (ballot); returns the previous setting.
+extern "C" int lv_onehot_set_build(int build) {
+  const int prev = g_build;
+  g_build = build == BUILD_XOR || build == BUILD_BALLOT ? build : 0;
+  return prev;
+}
 
 // The same arguments as lv_lanes_launch (lv_lanes.cu); see lvw::make_args.
 extern "C" int lv_onehot_launch(const void* pattern, const void* p_len,
@@ -87,7 +135,12 @@ extern "C" int lv_onehot_launch(const void* pattern, const void* p_len,
       log_gap_open, log_gap_extend, log_one_minus_snp, qconst, dist, e_fin,
       d_fin, logp, net);
   if (!lvw::valid_shape(a)) return static_cast<int>(cudaErrorInvalidValue);
-  return static_cast<int>(lvw::launch<NextMismatch>(
-      2 * e_max + 1 <= 32 ? &lv_onehot_kernel<1> : &lv_onehot_kernel<2>, a,
-      static_cast<cudaStream_t>(stream)));
+  const bool one = 2 * e_max + 1 <= 32;
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (g_build == BUILD_XOR)
+    return static_cast<int>(lvw::launch<MismatchMasks<false>>(
+        one ? &lv_onehot_kernel<1, false> : &lv_onehot_kernel<2, false>, a,
+        s));
+  return static_cast<int>(lvw::launch<MismatchMasks<true>>(
+      one ? &lv_onehot_kernel<1, true> : &lv_onehot_kernel<2, true>, a, s));
 }

@@ -1,17 +1,24 @@
-// The warp-per-row banded Landau-Vishkin loop shared by K1 (lv_lanes.cu)
-// and K5 (lv_onehot.cu): one warp per candidate row, lanes over diagonals.
-// The two kernels differ only in how a lane extends its diagonal to the
-// next mismatch, the `Ext` type each passes in:
-//   * K1 (XorRun in lv_lanes.cu) compares four bytes at a time (XOR +
-//     __ffs, lvk::extend_run) over the staged rows, and needs no scratch;
-//   * K5 (NextMismatch in lv_onehot.cu) first builds a next-mismatch table
-//     in the warp's scratch, then extends with one lookup.
+// The warp-per-row banded Landau-Vishkin loop shared by K1 (lv_lanes.cu),
+// K3 (lv_cigar.cu) and K5 (lv_onehot.cu): one warp per candidate row,
+// lanes over diagonals.  The kernels differ in two compile-time policies.
+//
+// How a lane extends its diagonal to the next mismatch, the `Ext` type:
+//   * XorRun (below; K1 and K3) compares four bytes at a time (XOR +
+//     __ffs, lvk::extend_run) over the staged rows and needs no scratch;
+//   * K5's MismatchMasks (lv_onehot.cu) first builds one 32-bit mismatch
+//     mask per diagonal and 32 positions in the warp's scratch, then
+//     extends by __ffs over them.
 // An Ext is constructed by every lane of the warp after the rows are
 // staged (so it can build its tables, lane-strided) and provides
 //   static int scratch_bytes(int P, int e_max)   bytes of its scratch
 //   int operator()(int d, int p, int end) const  first q in [p, end) with
 //       q >= free and pat[q] != txt[q + d], else end (d = diagonal index,
 //       0..D-1; txt holds e_max leading sentinels).
+//
+// What a row writes, the `Out` type: NoScript (K1, K5) the five scalars;
+// Script (K3) also the start run and the edit script the backtrace
+// recovered and, when asked, the whole L and action tables.  NoScript
+// compiles to the loop and lane-0 store of the scalar kernels alone.
 //
 // Semantics are lv_common.cuh's (snap_rnaseq_tpu/ops/lv.py
 // _lv_distance_jax).  Per row:
@@ -20,13 +27,16 @@
 //     slack after each row for four-byte loads;
 //   * a lane owns diagonal `lane` and, where D = 2 e_max + 1 > 32, also
 //     `lane + 32`; a level reads its neighbours' L by __shfl_sync (diagonal
-//     31 borders 32 across the two slots), extends in band, and finds its
-//     winner as the warp's minimum of prio[d] * D + d (__reduce_min_sync);
+//     31 borders 32 across the two slots: at K3's e_max 31 that is the
+//     centre and its right neighbour), extends in band, and finds its
+//     winner as the warp's minimum of prio[d] * D + d (__reduce_min_sync:
+//     the lowest rank, as the plain version's first argmin);
 //   * every level's int16 L row goes to shared memory; the row stops at
 //     its winning level (or k), and lane 0 runs lvk::backtrace over the
 //     level rows, adding logp in the plain version's order.
-// Warps per block are sized from the shapes (at most MAX_WARPS, within
-// SMEM_BUDGET); a shape whose one row does not fit is refused at launch.
+// Warps per block are sized from the shapes (at most the caller's cap,
+// within SMEM_BUDGET); a shape whose one row does not fit is refused at
+// launch.
 #pragma once
 
 #include "lv_common.cuh"
@@ -38,7 +48,8 @@ constexpr int MAX_WARPS = 8;
 constexpr int SMEM_BUDGET = 160 * 1024;
 constexpr int SMEM_MAX = 227 * 1024;
 
-// the launch arguments of K1 and K5 (the same C signature)
+// the launch arguments of K1, K3 and K5 (K3's C signature adds its
+// Script outputs)
 struct Args {
   const uint8_t* pattern;
   const int* p_len;
@@ -60,9 +71,10 @@ struct Args {
 __host__ __device__ inline int align16(int x) { return (x + 15) & ~15; }
 
 // byte offsets within a warp's slice of shared memory: the level table,
-// the staged pattern and text rows, the extension's scratch; its size
+// the staged pattern and text rows, the extension's scratch, the output
+// policy's scratch; its size
 struct Layout {
-  int lt, pat, txt, ext, warp;
+  int lt, pat, txt, ext, out, warp;
 };
 
 __host__ __device__ inline int pat_bytes(int P) {
@@ -73,14 +85,16 @@ __host__ __device__ inline int txt_bytes(int P, int e_max) {
   return lvk::round4(P + 2 * e_max + lvk::ROW_SLACK);
 }
 
-__host__ __device__ inline Layout layout(int P, int e_max, int ext_bytes) {
+__host__ __device__ inline Layout layout(int P, int e_max, int ext_bytes,
+                                         int out_bytes) {
   const int D = 2 * e_max + 1;
   Layout l;
   l.lt = 0;
   l.pat = lvk::round4((e_max + 1) * D * 2);
   l.txt = l.pat + pat_bytes(P);
   l.ext = align16(l.txt + txt_bytes(P, e_max));
-  l.warp = align16(l.ext + ext_bytes);
+  l.out = l.ext + ext_bytes;
+  l.warp = align16(l.out + out_bytes);
   return l;
 }
 
@@ -91,8 +105,47 @@ struct SharedTab {
   __device__ int L(int e, int d) const { return l[e * D + d]; }
 };
 
-template <int NS, class Ext>
-__device__ void lv_row(const Args& a, uint8_t* smem) {
+// K1's and K3's extension: the four-byte XOR run over the staged rows
+// (the `bits` formulation of the TPU kernels)
+struct XorRun {
+  const uint8_t* pat;
+  const uint8_t* txt;
+  int free_len;
+
+  __host__ __device__ static int scratch_bytes(int, int) { return 0; }
+
+  __device__ XorRun(const uint8_t* pat_, const uint8_t* txt_, uint8_t*, int,
+                    int, int free_len_, int)
+      : pat(pat_), txt(txt_), free_len(free_len_) {}
+
+  // diagonal d's text row starts at txt + d (txt + e_max + (d - e_max))
+  __device__ int operator()(int d, int p, int end) const {
+    return lvk::extend_run(pat, txt + d, p, end, free_len);
+  }
+};
+
+// K1 and K5 write the five scalars alone
+struct NoScript {
+  static constexpr bool SCRIPT = false;
+  static constexpr int BYTES = 0;
+};
+
+// K3's outputs besides the scalars: start_run (B,); acts, matched
+// (B, e_max), -1 / 0 past the final level; L, A (B, e_max+1, D), both
+// null unless asked for.  BYTES: the warp's shared copy of the script
+// (int8 acts[32], int16 matched[32]) that lane 0's backtrace fills.
+struct Script {
+  static constexpr bool SCRIPT = true;
+  static constexpr int BYTES = 32 + 2 * 32;
+  int* start_run;
+  int* acts;
+  int* matched;
+  int* L;
+  int* A;
+};
+
+template <int NS, class Ext, class Out = NoScript>
+__device__ void lv_row(const Args& a, uint8_t* smem, const Out& out = Out()) {
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
   const int row = blockIdx.x * (blockDim.x >> 5) + warp;
@@ -101,7 +154,8 @@ __device__ void lv_row(const Args& a, uint8_t* smem) {
   const int P = a.P, e_max = a.e_max;
   const int D = 2 * e_max + 1;
   const int center = e_max;
-  const Layout lay = layout(P, e_max, Ext::scratch_bytes(P, e_max));
+  const Layout lay = layout(P, e_max, Ext::scratch_bytes(P, e_max),
+                            Out::BYTES);
   uint8_t* base = smem + warp * lay.warp;
   int16_t* lt = reinterpret_cast<int16_t*>(base + lay.lt);
   uint8_t* pat = base + lay.pat;
@@ -190,7 +244,51 @@ __device__ void lv_row(const Args& a, uint8_t* smem) {
   }
   __syncwarp();
 
-  if (lane == 0) {
+  if constexpr (Out::SCRIPT) {
+    // K3: lane 0's backtrace leaves the script in the warp's shared memory
+    // and the scalars in global memory; then the lanes store the script
+    // and, when asked, the tables
+    int8_t* acts = reinterpret_cast<int8_t*>(base + lay.out);
+    int16_t* matched = reinterpret_cast<int16_t*>(base + lay.out + 32);
+    const SharedTab tab{lt, D};
+    if (lane == 0) {
+      float logp;
+      int net;
+      lvk::backtrace(tab, D, e_max, p_len, free_len, dist, e_fin, d_fin,
+                     perfect, perfect_ok,
+                     a.qlp ? a.qlp + (size_t)row * P : nullptr, a.cs, acts,
+                     matched, &logp, &net);
+      a.dist[row] = dist;
+      a.e_fin[row] = e_fin;
+      a.d_fin[row] = d_fin;
+      a.logp[row] = logp;
+      a.net[row] = net;
+      out.start_run[row] = first_mm;
+    }
+    __syncwarp();
+    // levels 1..e_max; -1 / 0 past the final level, as ops/lv.py
+    // _recover_actions returns them
+    for (int e = lane + 1; e <= e_max; e += 32) {
+      const bool on = e <= e_fin;
+      out.acts[(size_t)row * e_max + e - 1] = on ? acts[e] : -1;
+      out.matched[(size_t)row * e_max + e - 1] = on ? matched[e] : 0;
+    }
+    if (out.L != nullptr) {
+      // the row's last level: where it won, or k (at least 1) when none
+      // won, or 0 for the level-0 early-out; later levels repeat it, as
+      // the TPU kernel's where(done, L, best), and a level's actions are
+      // taken from the level before it (itself repeated past the last)
+      const int last = perfect ? 0 : (e_fin > 0 ? e_fin : max(k, 1));
+      const int n = (e_max + 1) * D;
+      int* L_row = out.L + (size_t)row * n;
+      int* A_row = out.A + (size_t)row * n;
+      for (int i = lane; i < n; i += 32) {
+        const int e = i / D, d = i - e * D;
+        L_row[i] = tab.L(min(e, last), d);
+        A_row[i] = e == 0 ? 0 : lvk::act_from(tab, min(e - 1, last), d, D);
+      }
+    }
+  } else if (lane == 0) {
     const SharedTab tab{lt, D};
     int8_t acts[32];
     int16_t matched[32];
@@ -208,7 +306,7 @@ __device__ void lv_row(const Args& a, uint8_t* smem) {
   }
 }
 
-// The launch arguments from the C interface both kernels export:
+// The launch arguments from the C interface the three kernels export:
 // pattern (B, P) u8; text (B, T) u8 (unpadded, masked to t_len in-kernel);
 // p_len, t_len, k, free (B,) i32 (free may be null); qlp (B, P) f32 or
 // null (then every quality is qconst); prio (D,) i32.
@@ -239,27 +337,45 @@ inline bool valid_shape(const Args& a) {
   return a.e_max >= 1 && a.e_max <= 31 && a.P >= 1 && a.P <= 32767;
 }
 
-// Launches `kernel` (a __global__ taking Args, instantiated for the
-// number of diagonal slots D needs) with whole warps per row.
-template <class Ext>
-cudaError_t launch(void (*kernel)(Args), const Args& a, cudaStream_t stream) {
-  const int per_warp = layout(a.P, a.e_max,
-                              Ext::scratch_bytes(a.P, a.e_max)).warp;
+// A launch's geometry: whole warps per row, at most `max_warps` a block
+// and within SMEM_BUDGET; raises the kernel's dynamic shared memory limit
+// where it needs more than 48 KB.
+struct Geometry {
+  int blocks, threads;
+  size_t smem;
+};
+
+template <class Ext, class Out, class Kernel>
+cudaError_t geometry(Kernel kernel, const Args& a, int max_warps,
+                     Geometry* g) {
+  const int per_warp = layout(a.P, a.e_max, Ext::scratch_bytes(a.P, a.e_max),
+                              Out::BYTES).warp;
   if (per_warp > SMEM_MAX) return cudaErrorInvalidValue;
-  int warps = MAX_WARPS;
+  int warps = max_warps < 1 ? 1 : max_warps;
   while (warps > 1 && warps * per_warp > SMEM_BUDGET) --warps;
-  const size_t smem = (size_t)warps * per_warp;
-  if (smem > 48 * 1024) {
+  g->smem = (size_t)warps * per_warp;
+  if (g->smem > 48 * 1024) {
     cudaError_t e = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        static_cast<int>(smem));
+        static_cast<int>(g->smem));
     if (e != cudaSuccess) return e;
   }
-  const int blocks = (a.B + warps - 1) / warps;
+  g->blocks = (a.B + warps - 1) / warps;
+  g->threads = warps * 32;
+  return cudaSuccess;
+}
+
+// Launches `kernel` (a __global__ taking Args, instantiated for the
+// number of diagonal slots D needs) with up to MAX_WARPS rows a block.
+template <class Ext>
+cudaError_t launch(void (*kernel)(Args), const Args& a, cudaStream_t stream) {
+  Geometry g;
+  cudaError_t e = geometry<Ext, NoScript>(kernel, a, MAX_WARPS, &g);
+  if (e != cudaSuccess) return e;
   Args arg = a;
   void* params[] = {&arg};
   return cudaLaunchKernel(reinterpret_cast<const void*>(kernel),
-                          dim3(blocks), dim3(warps * 32), params, smem,
+                          dim3(g.blocks), dim3(g.threads), params, g.smem,
                           stream);
 }
 

@@ -12,7 +12,9 @@ library, and `ptxas_report(name)` reads it.
 Nothing here is imported by a kernel-free code path: the wrappers call
 `launcher(name)` only when they are handed a CUDA tensor.  It loads the
 library once and binds its launch function to the C signature in
-`_SIGNATURES` once.
+`_SIGNATURES` once.  `set_variant(name, v)` calls the setter a library
+exports for measurement (`_SETTERS`: K3's warps per block, K5's mask
+build), which forces a launch variant until it is set back to 0.
 
 Every wrapper adds one to `LAUNCHES[<kernel>]` where it launches its kernel
 and nowhere else, so a run can show which kernels its main path reached.
@@ -62,11 +64,17 @@ _SIGNATURES = {
                   + [_P] * 6),
 }
 
+# int(int) setters for measurement: force a launch variant (0: the
+# kernel's own choice), return the previous one
+_SETTERS = {"lv_cigar": "lv_cigar_set_warps",      # K3 warps per block
+            "lv_onehot": "lv_onehot_set_build"}    # K5 mask build
+
 # K2 counts its forward (prefilter) and its rescue launches apart
 LAUNCHES = {"K1_lv_lanes": 0, "K2_bitpar_packed": 0, "K2_bitpar_rescue": 0,
             "K3_lv_cigar": 0, "K4_bitpar_rows": 0, "K5_lv_onehot": 0}
 _LOCK = threading.Lock()
 _LAUNCHERS: dict = {}
+_LIBS: dict = {}
 
 
 def count_launch(name: str) -> None:
@@ -152,6 +160,16 @@ def ptxas_report(name: str) -> list:
     return rows
 
 
+def _library(name: str) -> ctypes.CDLL:
+    with _LOCK:
+        lib = _LIBS.get(name)
+    if lib is None:
+        lib = ctypes.CDLL(build_all([name])[name])
+        with _LOCK:
+            lib = _LIBS.setdefault(name, lib)
+    return lib
+
+
 def launcher(name: str):
     """The launch function of library `name`, built, loaded and bound to
     its C signature at the first call and cached after."""
@@ -159,13 +177,22 @@ def launcher(name: str):
         cached = _LAUNCHERS.get(name)
     if cached is not None:
         return cached
-    so = build_all([name])[name]
     fn_name, argtypes = _SIGNATURES[name]
-    fn = getattr(ctypes.CDLL(so), fn_name)
+    fn = getattr(_library(name), fn_name)
     fn.argtypes = argtypes
     fn.restype = ctypes.c_int
     with _LOCK:
         return _LAUNCHERS.setdefault(name, fn)
+
+
+def set_variant(name: str, value: int) -> int:
+    """Force library `name`'s launch variant through its setter in
+    `_SETTERS` (0 restores the kernel's own choice); returns the previous
+    setting.  For measurements that compare variants on the same inputs."""
+    fn = getattr(_library(name), _SETTERS[name])
+    fn.argtypes = [ctypes.c_int]
+    fn.restype = ctypes.c_int
+    return fn(int(value))
 
 
 def ptr(t: torch.Tensor | None) -> ctypes.c_void_p:

@@ -4,13 +4,15 @@
             net_indel per row, with a per-row free prefix — the hot path
             of score_phase.
   lv_lanes_onehot  K5, csrc/lv_onehot.cu: the same function and outputs
-            (one warp per row over a next-mismatch table), which ops/lv.py
+            (extending over per-diagonal mismatch masks), which ops/lv.py
             launches instead of K1 under SNAP_TPU_LV_LANES=onehot.
   lv_cigar  K3, csrc/lv_cigar.cu: the same five scalars plus the edit
             script that CIGAR emission reads (start run, and actions and
             matched runs per level); with tables=True also the whole
             (e_max+1, D) L and action tables, for checks against the plain
             version.
+
+All three run one warp per row over the loop of csrc/lv_warp.cuh.
 
 All take CUDA tensors only: they check device, dtype, shape and
 contiguity, allocate outputs with torch.empty, launch on the current

@@ -19,8 +19,13 @@ from snap_rnaseq_tpu_torch.ops import bitpar, cigar, kernels, lv, lv_cuda
 from snap_rnaseq_tpu_torch.ops.genome_gather import pack_genome_4bit
 from snap_rnaseq_tpu_torch.ops import u32
 from snap_rnaseq_tpu_torch.utils.synth_genome import hg_like_genome
+from torch_lv_cases import E_MAX_CIGAR, cigar_rows, max_path_diagonal
 
 pytestmark = pytest.mark.cuda
+
+# K3's outputs besides the tables: the scalars and the edit script
+K3_SCRIPT = ("distance", "e_final", "d_final", "net_indel", "acts",
+             "matched", "start_run")
 
 
 @pytest.fixture
@@ -152,6 +157,42 @@ def test_k5_matches_plain_and_k1(card, e_max, free, monkeypatch):
         assert (want.distance[long_text] == 0).all()
 
 
+@pytest.mark.parametrize("e_max", [16, 17])
+@pytest.mark.parametrize("P", [31, 32, 33, 64, 100])
+@pytest.mark.parametrize("build", [1, 2])
+def test_k5_mask_boundaries(card, P, e_max, build, monkeypatch):
+    """K5's mismatch masks at their edges, in both builds (1: XOR, 2:
+    ballot): P on either side of a word boundary, free prefixes of 0, 31,
+    32, 33 and P, texts cut short of P + d (the sentinels mismatch); against
+    the plain version and, bit for bit, K1."""
+    rng = np.random.default_rng(700 + 2 * P + e_max)
+    B = 2000
+    pats, p_len, texts, t_len = _edit_cases(rng, B, P, P + e_max, e_max)
+    p_len[:B // 2] = P
+    short = rng.random(B) < 0.25
+    t_len[short] = rng.integers(P // 2, P, int(short.sum()))
+    free = np.resize(np.array([0, 31, 32, 33, P], np.int32).clip(0, P), B)
+    to = lambda a: torch.from_numpy(a).to(card)
+    q = lv.phred_log_prob_device(
+        to(rng.integers(33, 74, (B, P)).astype(np.uint8)))
+    k = np.full(B, e_max, np.int32)
+    args = (to(pats), to(p_len), to(texts), to(t_len), to(k), q)
+    fr = to(free)
+    monkeypatch.setenv("SNAP_TPU_LV_LANES", "onehot")
+    prev = kernels.set_variant("lv_onehot", build)
+    try:
+        got = lv.lv_distance(*args, fr, e_max=e_max)
+    finally:
+        kernels.set_variant("lv_onehot", prev)
+    want = lv._lv_distance_plain(*args, fr, e_max=e_max)
+    fields = ("distance", "e_final", "d_final", "net_indel")
+    _same_lv(got, want, fields)
+    k1 = lv_cuda.lv_lanes(*args, fr, e_max=e_max)
+    for f in fields + ("log_prob",):
+        assert torch.equal(getattr(got, f), getattr(k1, f)), f
+    assert (want.distance >= 0).any() and (want.distance < 0).any()
+
+
 @pytest.mark.parametrize("P,off", [(100, 16), (40, 3), (128, 0)])
 def test_k2_matches_plain(card, P, off):
     rng = np.random.default_rng(P + off)
@@ -257,7 +298,7 @@ def test_k4_matches_plain(card, track_pos, free_start):
 
 
 @pytest.mark.parametrize("e_max,W,tables", [(31, 128, True), (5, 32, True),
-                                            (31, 100, False)])
+                                            (5, 128, True), (31, 100, False)])
 def test_k3_matches_plain(card, e_max, W, tables):
     rng = np.random.default_rng(e_max + W)
     B = 2048
@@ -271,11 +312,46 @@ def test_k3_matches_plain(card, e_max, W, tables):
                            tables=tables)
     want = lv._lv_distance_plain(*args, None, e_max=e_max, cigar_order=True,
                                  keep_tables=True)
-    script = ("distance", "e_final", "d_final", "net_indel", "acts",
-              "matched", "start_run")
-    _same_lv(got, want, script + (("L", "A") if tables else ()))
+    _same_lv(got, want, K3_SCRIPT + (("L", "A") if tables else ()))
     if not tables:
         assert got.L.shape == (B, 0, 2 * e_max + 1) == got.A.shape
+
+
+@pytest.mark.parametrize("B", [1, 2, 150, 1000])
+def test_k3_at_cigar_width(card, B):
+    """K3 as the CIGAR paths call it (P = 100, e_max 31, k 30, no tables)
+    at their flush sizes, none a multiple of the warps per block: rows with
+    short indels, with 10-30 edits (winning levels up to 30) and unrelated
+    rows (distance -1 after all 30 levels).  At e_max 31 the centre is
+    diagonal 31, lane 31's first slot, so a path right of it crosses into
+    the lanes' second slot and back.  Also under each forced warps per
+    block, the same answer."""
+    rng = np.random.default_rng(500 + B)
+    pats, p_len, texts, t_len = cigar_rows(rng, B)
+    to = lambda a: torch.from_numpy(a).to(card)
+    args = (to(pats), to(p_len), to(texts), to(t_len),
+            to(np.full(B, E_MAX_CIGAR - 1, np.int32)), None)
+    before = kernels.LAUNCHES["K3_lv_cigar"]
+    got = lv_cuda.lv_cigar(*args, e_max=E_MAX_CIGAR, cigar_order=True)
+    assert kernels.LAUNCHES["K3_lv_cigar"] == before + 1
+    want = lv._lv_distance_plain(*args, None, e_max=E_MAX_CIGAR,
+                                 cigar_order=True, keep_tables=True)
+    _same_lv(got, want, K3_SCRIPT)
+    for w in (1, 2, 4, 8):
+        prev = kernels.set_variant("lv_cigar", w)
+        try:
+            forced = lv_cuda.lv_cigar(*args, e_max=E_MAX_CIGAR,
+                                      cigar_order=True)
+        finally:
+            kernels.set_variant("lv_cigar", prev)
+        _same_lv(forced, want, K3_SCRIPT)
+    if B >= 150:
+        assert (want.distance < 0).any()
+        assert int(want.e_final.max()) >= 25
+        right = max_path_diagonal(want.acts.cpu(), want.e_final.cpu(),
+                                  want.d_final.cpu())
+        assert (right[want.distance.cpu().numpy() >= 0] > 0).any()
+        assert (want.d_final < 0).any()
 
 
 def test_cigars_on_card_equal_cpu(card):
