@@ -19,8 +19,8 @@ failure; nothing is caught.
    (clipped texts, random k, pad codes, K1 at the rescue's e_max 17 with
    free 0 / free = read length rows, K3 also at the CIGAR flushes' sizes
    of 1, 2 and 150 rows with rows that fail, K5 at e_max 16 and 17 with
-   free prefixes at and beside a mask word's boundary and in both mask
-   builds, also bit for bit against K1, both timed on the same rows);
+   free prefixes at and beside a mask word's boundary, also bit for bit
+   against K1, both timed on the same rows);
    integers must be bit-identical and log-probabilities within rtol/atol
    1e-5.  K2's rescue form is also run and timed at 1-32 chunks per row
    (the split scan), each count giving the same answer.
@@ -63,9 +63,8 @@ failure; nothing is caught.
    tolerances) and both are timed with CUDA events; the bound is computed
    from the same inputs.  K3's levels per row are printed per path; K3 is
    re-timed at the single path's calls with 1, 2, 4 and 8 warps per block
-   forced and under its own choice; K5's calls on RNA single under onehot
-   are re-run by both its mask builds and by K1 on the same inputs, timed
-   in turns.
+   forced; K5's calls on RNA single under onehot are re-run by K5 and by
+   K1 on the same inputs, timed in turns.
 7. Prints the kernels line: per kernel, `by_path` holds every path that
    launched it (launches, device and bound ms per launch weighted by
    launches, lost ms = launches x (device - bound), its shapes), and the
@@ -93,8 +92,6 @@ READ_LEN = 100
 HBM_BYTES_PER_S = 3.35e12
 INT32_LANES_PER_SM = 64            # 4 partitions x 16 INT32 units (Hopper)
 TOL = 1e-5
-# K5's mask builds, as csrc/lv_onehot.cu lv_onehot_set_build takes them
-K5_XOR, K5_BALLOT = 1, 2
 
 
 def log(msg):
@@ -298,28 +295,18 @@ K3_SCRIPT = ("distance", "e_final", "d_final", "net_indel", "acts",
              "matched", "start_run")
 
 
-@functools.lru_cache(None)
-def lv_cases_module():
-    """tests/torch_lv_cases.py (numpy only): the CIGAR paths' rows."""
-    import importlib.util
-    spec = importlib.util.spec_from_file_location(
-        "torch_lv_cases", os.path.join(ROOT, "tests", "torch_lv_cases.py"))
-    mod = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(mod)
-    return mod
-
-
 def check_k3(dev, rng):
     """K3 at the CIGAR paths' width (io/sam.py, io/bulk.py): pattern and
     text rows of the read length, texts no longer than their reads, e_max
     = 31, k = 30, the CIGAR diagonal order; without the L/A tables, then
     once more with tables=True.  Then at a flush's sizes, 1, 2 and 150
-    rows (tests/torch_lv_cases.py cigar_rows: short indels, a path right
+    rows (tools/cigar_cases.py cigar_rows: short indels, a path right
     of the centre diagonal and back, 10-30 edits, and rows that fail after
     all 30 levels)."""
     import torch
     from snap_rnaseq_tpu_torch.ops import lv
     from snap_rnaseq_tpu_torch.ops.lv_cuda import lv_cigar
+    from snap_rnaseq_tpu_torch.tools.cigar_cases import cigar_rows
     B, P, E = 10_240, READ_LEN, 31
     pats, texts, t_len = edit_cases(rng, B, P, P, 8, filler=False)
     to = lambda a: torch.from_numpy(a).to(dev)
@@ -338,7 +325,7 @@ def check_k3(dev, rng):
         assert_same(f"K3 tables {f}", getattr(full, f), getattr(want, f))
     indel_rows, failed = int((want.net_indel != 0).sum()), 0
     for n in (1, 2, 150):
-        c_args = [to(a) for a in lv_cases_module().cigar_rows(rng, n)]
+        c_args = [to(a) for a in cigar_rows(rng, n)]
         c_args.append(to(np.full(n, E - 1, np.int32)))
         want = lv._lv_distance_plain(*c_args, None, None, e_max=E,
                                      cigar_order=True, keep_tables=True)
@@ -509,10 +496,8 @@ def check_k5(dev, rng):
     a third of the rows with a free prefix (up to the whole read; an
     eighth at 31, 32, 33 or P, a mask word's boundary and either side),
     f32 quality rows; against the plain version and, bit for bit (log
-    probabilities included), against K1 and K5's XOR mask build (the
-    default being the ballot build) on the same rows."""
+    probabilities included), against K1 on the same rows."""
     import torch
-    from snap_rnaseq_tpu_torch.ops import kernels as kx
     from snap_rnaseq_tpu_torch.ops import lv
     from snap_rnaseq_tpu_torch.ops.lv_cuda import lv_lanes, lv_lanes_onehot
     B, P = 40_960, READ_LEN
@@ -536,11 +521,6 @@ def check_k5(dev, rng):
         got = lv_lanes_onehot(*args, e_max=E)
         want = lv._lv_distance_plain(*args, e_max=E)
         k1 = lv_lanes(*args, e_max=E)
-        prev = kx.set_variant("lv_onehot", K5_XOR)
-        try:
-            xor = lv_lanes_onehot(*args, e_max=E)
-        finally:
-            kx.set_variant("lv_onehot", prev)
         ints = ("distance", "e_final", "d_final", "net_indel")
         for f in ints:
             assert_same(f"K5 e_max {E} {f}", getattr(got, f),
@@ -548,8 +528,6 @@ def check_k5(dev, rng):
         for f in ints + ("log_prob",):
             assert_same(f"K5 vs K1 e_max {E} {f}", getattr(got, f),
                         getattr(k1, f))
-            assert_same(f"K5 XOR build e_max {E} {f}",
-                        getattr(xor, f), getattr(got, f))
         err = max(err, logp_err(f"K5 e_max {E}", got.log_prob,
                                 want.log_prob))
         found += int((want.distance >= 0).sum())
@@ -784,9 +762,9 @@ def check_path_calls(path, calls):
 
 def k3_warp_sweep(calls):
     """K3 at the single path's recorded calls with 1, 2, 4 and 8 warps per
-    block forced, then under its own choice (min(8, ceil(B / SMs))):
-    device ms per launch, weighted by the path's launches; each setting
-    must give the same script and scalars."""
+    block forced (4 being the default): device ms per launch, weighted by
+    the path's launches; each setting must give the same script and
+    scalars."""
     from snap_rnaseq_tpu_torch.ops import kernels as kx
     recs = [r for r in calls.values() if r["kernel"] == "K3_lv_cigar"]
     cases = [(r["n"], r["fn"], on_card(r)) for r in recs]
@@ -794,7 +772,7 @@ def k3_warp_sweep(calls):
     n_all = sum(n for n, _, _ in cases)
     sweep = {}
     try:
-        for w in (1, 2, 4, 8, 0):
+        for w in (1, 2, 4, 8):
             kx.set_variant("lv_cigar", w)
             ms = 0.0
             for (n, fn, a), ref in zip(cases, refs):
@@ -803,7 +781,7 @@ def k3_warp_sweep(calls):
                     assert_same(f"K3 at {w} warps a block, {f}",
                                 getattr(got, f), getattr(ref, f))
                 ms += n * device_ms(lambda: fn(**a), 20)
-            sweep[str(w) if w else "own choice"] = ms / n_all
+            sweep[str(w)] = ms / n_all
     finally:
         kx.set_variant("lv_cigar", 0)
     log(f"K3 at the single path's {len(cases)} call shapes ("
@@ -814,10 +792,9 @@ def k3_warp_sweep(calls):
 
 def k5_vs_k1(calls):
     """K5's recorded calls on RNA single under onehot, re-run on the same
-    inputs by K5's XOR and ballot mask builds and by K1, timed in turns
-    (XOR, ballot, K1, K1, ballot, XOR); all three give the same outputs,
-    log-probabilities included.  Device ms per launch of each, per shape."""
-    from snap_rnaseq_tpu_torch.ops import kernels as kx
+    inputs by K5 and by K1, timed in turns (K5, K1, K1, K5); both give the
+    same outputs, log-probabilities included.  Device ms per launch of
+    each, per shape."""
     from snap_rnaseq_tpu_torch.ops import lv_cuda
     out = {}
     fields = ("distance", "e_final", "d_final", "net_indel", "log_prob")
@@ -825,27 +802,21 @@ def k5_vs_k1(calls):
         if rec["kernel"] != "K5_lv_onehot":
             continue
         a = on_card(rec)
-        runs = {"K5 XOR": (lv_cuda.lv_lanes_onehot, K5_XOR),
-                "K5 ballot": (lv_cuda.lv_lanes_onehot, K5_BALLOT),
-                "K1": (lv_cuda.lv_lanes, 0)}
+        runs = {"K5": lv_cuda.lv_lanes_onehot, "K1": lv_cuda.lv_lanes}
         ref = lv_cuda.lv_lanes(**a)
         ms = {name: [] for name in runs}
-        try:
-            for name in list(runs) + list(runs)[::-1]:
-                fn, build = runs[name]
-                kx.set_variant("lv_onehot", build)
-                got = fn(**a)
-                for f in fields:
-                    assert_same(f"{name} vs K1 {f}", getattr(got, f),
-                                getattr(ref, f))
-                ms[name].append(device_ms(lambda: fn(**a), 20))
-        finally:
-            kx.set_variant("lv_onehot", 0)
+        for name in list(runs) + list(runs)[::-1]:
+            fn = runs[name]
+            got = fn(**a)
+            for f in fields:
+                assert_same(f"{name} vs K1 {f}", getattr(got, f),
+                            getattr(ref, f))
+            ms[name].append(device_ms(lambda: fn(**a), 20))
         shape = call_shape(a)
         out[f"{shape[0]} rows x{rec['n']}"] = {
             k: sum(v) / len(v) for k, v in ms.items()}
-    log("RNA single's K5 call shapes, device ms per launch (K5 by mask "
-        "build, and K1 on the same inputs): " + json.dumps(out))
+    log("RNA single's K5 call shapes, device ms per launch (K5, and K1 on "
+        "the same inputs): " + json.dumps(out))
     return out
 
 

@@ -29,18 +29,16 @@
 // store it coalesced, and with tables asked for they stream the L rows
 // (levels past the row's last repeating it, as the TPU kernel's
 // where(done, L, best)) and the action rows recomputed from the level
-// before.  Warps per block follow the row count, min(8, ceil(B / SMs)),
-// so a flush's rows spread over the SMs; at 131-176 rows forcing 1, 2, 4
-// or 8 changed the time by under 2% (H100, chip_smoke.py k3_warp_sweep):
-// a call is one row's latency plus the launch, 0.007-0.014 ms.
-#include <algorithm>
-
+// before.  A block holds 4 warps: at the single path's 131-176 rows, 1,
+// 2, 4 and 8 warps a block gave 0.01153, 0.01141, 0.01139 and 0.01164 ms
+// a call (H100 80GB HBM3, 700 W; chip_smoke.py k3_warp_sweep), one row's
+// latency plus the launch whatever the geometry.
 #include "lv_warp.cuh"
 
 namespace {
 
-// warps per block forced by lv_cigar_set_warps (0: from the row count)
-int g_warps = 0;
+constexpr int WARPS = 4;              // warps per block unless forced
+int g_warps = WARPS;
 
 template <int NS>
 __global__ void lv_cigar_kernel(lvw::Args a, lvw::Script s) {
@@ -48,21 +46,13 @@ __global__ void lv_cigar_kernel(lvw::Args a, lvw::Script s) {
   lvw::lv_row<NS, lvw::XorRun, lvw::Script>(a, smem, s);
 }
 
-int warps_per_block(int B) {
-  if (g_warps > 0) return g_warps;
-  int dev = 0, sms = 1;
-  cudaGetDevice(&dev);
-  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  return std::min(lvw::MAX_WARPS, std::max(1, (B + sms - 1) / sms));
-}
-
 }  // namespace
 
 // For measurement: force `warps` warps per block (1..8), or 0 for the
-// choice from the row count; returns the previous setting.
+// default; returns the previous setting.
 extern "C" int lv_cigar_set_warps(int warps) {
   const int prev = g_warps;
-  g_warps = std::min(std::max(warps, 0), lvw::MAX_WARPS);
+  g_warps = warps >= 1 && warps <= lvw::MAX_WARPS ? warps : WARPS;
   return prev;
 }
 
@@ -93,13 +83,7 @@ extern "C" int lv_cigar_launch(const void* pattern, const void* p_len,
                       static_cast<int*>(acts_out),
                       static_cast<int*>(matched_out), static_cast<int*>(L_out),
                       static_cast<int*>(A_out)};
-  void (*kernel)(lvw::Args, lvw::Script) =
-      2 * e_max + 1 <= 32 ? &lv_cigar_kernel<1> : &lv_cigar_kernel<2>;
-  lvw::Geometry g;
-  cudaError_t e = lvw::geometry<lvw::XorRun, lvw::Script>(
-      kernel, a, warps_per_block(B), &g);
-  if (e != cudaSuccess) return static_cast<int>(e);
-  kernel<<<g.blocks, g.threads, g.smem, static_cast<cudaStream_t>(stream)>>>(
-      a, s);
-  return static_cast<int>(cudaGetLastError());
+  return static_cast<int>(lvw::launch<lvw::XorRun, lvw::Script>(
+      2 * e_max + 1 <= 32 ? &lv_cigar_kernel<1> : &lv_cigar_kernel<2>, a,
+      static_cast<cudaStream_t>(stream), g_warps, s));
 }

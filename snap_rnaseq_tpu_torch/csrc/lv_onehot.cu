@@ -22,26 +22,21 @@
 // they mismatch), and a level extends to the first set bit at or after p
 // (__ffs of the word shifted by p & 31, then the following words), clipped
 // to end_d.  The masks take D x ceil(P/32) words, 560 bytes a warp at P =
-// 100 and e_max 17.  Two builds of the same masks:
-//   * ballot (the default): for each (word, diagonal) lane b compares
-//     position 32 w + b and __ballot_sync gathers the word;
-//   * XOR: each lane takes (word, diagonal) pairs and assembles a word
-//     from eight four-byte XORs (lvk::load4), one bit per nonzero byte.
-// At RNA single's 8,192 rows the ballot build ran 0.0302 ms a launch and
-// the XOR build 0.0366 (H100 80GB HBM3, 700 W; chip_smoke.py k5_vs_k1).
+// 100 and e_max 17.  They are built by ballots: for each (word, diagonal)
+// lane b compares position 32 w + b and __ballot_sync gathers the word.
+// A second build, each lane assembling words from eight four-byte XORs
+// (lvk::load4), was slower at every measured shape: 0.0364-0.0368 against
+// 0.0301-0.0303 ms at RNA single's 8,192 rows, 0.0195 against 0.0190 at
+// 2,048 (H100 80GB HBM3, 700 W; chip_smoke.py), its build loop 117 SASS
+// instructions to the ballot build's 33.
 #include "lv_warp.cuh"
 
 namespace {
-
-// mask build forced by lv_onehot_set_build (0: the default)
-int g_build = 0;
-constexpr int BUILD_XOR = 1, BUILD_BALLOT = 2;
 
 __host__ __device__ inline int mask_words(int P) { return (P + 31) >> 5; }
 
 // the mismatch masks, word-major (word w of diagonal d at w * D + d, so
 // lanes on the same word read distinct banks)
-template <bool BALLOT>
 struct MismatchMasks {
   const uint32_t* m;
   int D;
@@ -56,37 +51,14 @@ struct MismatchMasks {
       : m(reinterpret_cast<const uint32_t*>(scratch)), D(2 * e_max + 1) {
     uint32_t* out = reinterpret_cast<uint32_t*>(scratch);
     const int NW = mask_words(P);
-    if constexpr (BALLOT) {
-      for (int w = 0; w < NW; ++w) {
-        const int p = 32 * w + lane;
-        const bool live = p < P && p >= free_len;
-        const uint8_t c = live ? pat[p] : 0;
-        for (int d = 0; d < D; ++d) {
-          const uint32_t bits =
-              __ballot_sync(lvw::FULL, live && txt[p + d] != c);
-          if (lane == (d & 31)) out[w * D + d] = bits;
-        }
-      }
-    } else {
-      for (int i = lane; i < NW * D; i += 32) {
-        const int w = i / D, d = i - w * D;
-        const int p0 = 32 * w;
-        const int n = min(32, P - p0);
-        uint32_t bits = 0;
-        for (int j = 0; j < n; j += 4) {
-          // byte q of x is nonzero iff positions p0 + j + q differ; fold
-          // each byte onto its low bit, then gather the four low bits
-          uint32_t x =
-              lvk::load4(pat + p0 + j) ^ lvk::load4(txt + d + p0 + j);
-          x |= x >> 4;
-          x |= x >> 2;
-          x |= x >> 1;
-          bits |= (((x & 0x01010101u) * 0x01020408u) >> 24) << j;
-        }
-        if (n < 32) bits &= (1u << n) - 1u;          // past P
-        const int nf = free_len - p0;                  // the free prefix
-        if (nf > 0) bits = nf >= 32 ? 0u : bits & (0xFFFFFFFFu << nf);
-        out[i] = bits;
+    for (int w = 0; w < NW; ++w) {
+      const int p = 32 * w + lane;
+      const bool live = p < P && p >= free_len;
+      const uint8_t c = live ? pat[p] : 0;
+      for (int d = 0; d < D; ++d) {
+        const uint32_t bits =
+            __ballot_sync(lvw::FULL, live && txt[p + d] != c);
+        if (lane == (d & 31)) out[w * D + d] = bits;
       }
     }
   }
@@ -103,21 +75,13 @@ struct MismatchMasks {
   }
 };
 
-template <int NS, bool BALLOT>
+template <int NS>
 __global__ void lv_onehot_kernel(lvw::Args a) {
   extern __shared__ __align__(16) uint8_t smem[];
-  lvw::lv_row<NS, MismatchMasks<BALLOT>>(a, smem);
+  lvw::lv_row<NS, MismatchMasks>(a, smem);
 }
 
 }  // namespace
-
-// For measurement: force the XOR (1) or the ballot (2) mask build, or 0
-// for the default (ballot); returns the previous setting.
-extern "C" int lv_onehot_set_build(int build) {
-  const int prev = g_build;
-  g_build = build == BUILD_XOR || build == BUILD_BALLOT ? build : 0;
-  return prev;
-}
 
 // The same arguments as lv_lanes_launch (lv_lanes.cu); see lvw::make_args.
 extern "C" int lv_onehot_launch(const void* pattern, const void* p_len,
@@ -135,12 +99,7 @@ extern "C" int lv_onehot_launch(const void* pattern, const void* p_len,
       log_gap_open, log_gap_extend, log_one_minus_snp, qconst, dist, e_fin,
       d_fin, logp, net);
   if (!lvw::valid_shape(a)) return static_cast<int>(cudaErrorInvalidValue);
-  const bool one = 2 * e_max + 1 <= 32;
-  const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (g_build == BUILD_XOR)
-    return static_cast<int>(lvw::launch<MismatchMasks<false>>(
-        one ? &lv_onehot_kernel<1, false> : &lv_onehot_kernel<2, false>, a,
-        s));
-  return static_cast<int>(lvw::launch<MismatchMasks<true>>(
-      one ? &lv_onehot_kernel<1, true> : &lv_onehot_kernel<2, true>, a, s));
+  return static_cast<int>(lvw::launch<MismatchMasks>(
+      2 * e_max + 1 <= 32 ? &lv_onehot_kernel<1> : &lv_onehot_kernel<2>, a,
+      static_cast<cudaStream_t>(stream)));
 }

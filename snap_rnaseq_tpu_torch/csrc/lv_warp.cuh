@@ -35,8 +35,8 @@
 //     its winning level (or k), and lane 0 runs lvk::backtrace over the
 //     level rows, adding logp in the plain version's order.
 // Warps per block are sized from the shapes (at most the caller's cap,
-// within SMEM_BUDGET); a shape whose one row does not fit is refused at
-// launch.
+// MAX_WARPS unless given, within SMEM_BUDGET); a shape whose one row does
+// not fit is refused at launch.
 #pragma once
 
 #include "lv_common.cuh"
@@ -337,45 +337,31 @@ inline bool valid_shape(const Args& a) {
   return a.e_max >= 1 && a.e_max <= 31 && a.P >= 1 && a.P <= 32767;
 }
 
-// A launch's geometry: whole warps per row, at most `max_warps` a block
-// and within SMEM_BUDGET; raises the kernel's dynamic shared memory limit
-// where it needs more than 48 KB.
-struct Geometry {
-  int blocks, threads;
-  size_t smem;
-};
-
-template <class Ext, class Out, class Kernel>
-cudaError_t geometry(Kernel kernel, const Args& a, int max_warps,
-                     Geometry* g) {
+// Launches `kernel` (a __global__ taking Args and then `extra`,
+// instantiated for the number of diagonal slots D needs) with whole warps
+// per row, up to `max_warps` rows a block within SMEM_BUDGET; raises the
+// kernel's dynamic shared memory limit where it needs more than 48 KB.
+template <class Ext, class Out = NoScript, class... Extra>
+cudaError_t launch(void (*kernel)(Args, Extra...), const Args& a,
+                   cudaStream_t stream, int max_warps = MAX_WARPS,
+                   Extra... extra) {
   const int per_warp = layout(a.P, a.e_max, Ext::scratch_bytes(a.P, a.e_max),
                               Out::BYTES).warp;
   if (per_warp > SMEM_MAX) return cudaErrorInvalidValue;
   int warps = max_warps < 1 ? 1 : max_warps;
   while (warps > 1 && warps * per_warp > SMEM_BUDGET) --warps;
-  g->smem = (size_t)warps * per_warp;
-  if (g->smem > 48 * 1024) {
+  const size_t smem = (size_t)warps * per_warp;
+  if (smem > 48 * 1024) {
     cudaError_t e = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        static_cast<int>(g->smem));
+        static_cast<int>(smem));
     if (e != cudaSuccess) return e;
   }
-  g->blocks = (a.B + warps - 1) / warps;
-  g->threads = warps * 32;
-  return cudaSuccess;
-}
-
-// Launches `kernel` (a __global__ taking Args, instantiated for the
-// number of diagonal slots D needs) with up to MAX_WARPS rows a block.
-template <class Ext>
-cudaError_t launch(void (*kernel)(Args), const Args& a, cudaStream_t stream) {
-  Geometry g;
-  cudaError_t e = geometry<Ext, NoScript>(kernel, a, MAX_WARPS, &g);
-  if (e != cudaSuccess) return e;
+  const int blocks = (a.B + warps - 1) / warps;
   Args arg = a;
-  void* params[] = {&arg};
+  void* params[] = {&arg, &extra...};
   return cudaLaunchKernel(reinterpret_cast<const void*>(kernel),
-                          dim3(g.blocks), dim3(g.threads), params, g.smem,
+                          dim3(blocks), dim3(warps * 32), params, smem,
                           stream);
 }
 

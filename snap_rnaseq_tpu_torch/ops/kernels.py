@@ -13,8 +13,8 @@ Nothing here is imported by a kernel-free code path: the wrappers call
 `launcher(name)` only when they are handed a CUDA tensor.  It loads the
 library once and binds its launch function to the C signature in
 `_SIGNATURES` once.  `set_variant(name, v)` calls the setter a library
-exports for measurement (`_SETTERS`: K3's warps per block, K5's mask
-build), which forces a launch variant until it is set back to 0.
+exports for measurement (`_SETTERS`: K3's warps per block), which forces
+a launch variant until it is set back to 0.
 
 Every wrapper adds one to `LAUNCHES[<kernel>]` where it launches its kernel
 and nowhere else, so a run can show which kernels its main path reached.
@@ -66,8 +66,7 @@ _SIGNATURES = {
 
 # int(int) setters for measurement: force a launch variant (0: the
 # kernel's own choice), return the previous one
-_SETTERS = {"lv_cigar": "lv_cigar_set_warps",      # K3 warps per block
-            "lv_onehot": "lv_onehot_set_build"}    # K5 mask build
+_SETTERS = {"lv_cigar": "lv_cigar_set_warps"}     # K3 warps per block
 
 # K2 counts its forward (prefilter) and its rescue launches apart
 LAUNCHES = {"K1_lv_lanes": 0, "K2_bitpar_packed": 0, "K2_bitpar_rescue": 0,

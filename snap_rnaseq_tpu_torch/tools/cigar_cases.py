@@ -1,6 +1,6 @@
-"""Inputs for the LV kernels' tests at the widths their paths give them,
-made with numpy from the caller's generator.  Imports neither jax nor the
-JAX package, so the card-only tests can use it on a machine without them."""
+"""K3's rows at the width the CIGAR paths give them, made with numpy from
+the caller's generator, for the kernel checks of chip_smoke.py and the
+tests (numpy only, so they run where neither torch's card nor jax is)."""
 import numpy as np
 
 E_MAX_CIGAR = 31      # MAX_K: the CIGAR paths' e_max, with k = 30

@@ -19,7 +19,8 @@ from snap_rnaseq_tpu_torch.ops import bitpar, cigar, kernels, lv, lv_cuda
 from snap_rnaseq_tpu_torch.ops.genome_gather import pack_genome_4bit
 from snap_rnaseq_tpu_torch.ops import u32
 from snap_rnaseq_tpu_torch.utils.synth_genome import hg_like_genome
-from torch_lv_cases import E_MAX_CIGAR, cigar_rows, max_path_diagonal
+from snap_rnaseq_tpu_torch.tools.cigar_cases import (E_MAX_CIGAR, cigar_rows,
+                                                   max_path_diagonal)
 
 pytestmark = pytest.mark.cuda
 
@@ -159,12 +160,11 @@ def test_k5_matches_plain_and_k1(card, e_max, free, monkeypatch):
 
 @pytest.mark.parametrize("e_max", [16, 17])
 @pytest.mark.parametrize("P", [31, 32, 33, 64, 100])
-@pytest.mark.parametrize("build", [1, 2])
-def test_k5_mask_boundaries(card, P, e_max, build, monkeypatch):
-    """K5's mismatch masks at their edges, in both builds (1: XOR, 2:
-    ballot): P on either side of a word boundary, free prefixes of 0, 31,
-    32, 33 and P, texts cut short of P + d (the sentinels mismatch); against
-    the plain version and, bit for bit, K1."""
+def test_k5_mask_boundaries(card, P, e_max, monkeypatch):
+    """K5's mismatch masks at their edges: P on either side of a word
+    boundary, free prefixes of 0, 31, 32, 33 and P, texts cut short of
+    P + d (the sentinels mismatch); against the plain version and, bit for
+    bit, K1."""
     rng = np.random.default_rng(700 + 2 * P + e_max)
     B = 2000
     pats, p_len, texts, t_len = _edit_cases(rng, B, P, P + e_max, e_max)
@@ -179,11 +179,9 @@ def test_k5_mask_boundaries(card, P, e_max, build, monkeypatch):
     args = (to(pats), to(p_len), to(texts), to(t_len), to(k), q)
     fr = to(free)
     monkeypatch.setenv("SNAP_TPU_LV_LANES", "onehot")
-    prev = kernels.set_variant("lv_onehot", build)
-    try:
-        got = lv.lv_distance(*args, fr, e_max=e_max)
-    finally:
-        kernels.set_variant("lv_onehot", prev)
+    before = kernels.LAUNCHES["K5_lv_onehot"]
+    got = lv.lv_distance(*args, fr, e_max=e_max)
+    assert kernels.LAUNCHES["K5_lv_onehot"] == before + 1
     want = lv._lv_distance_plain(*args, fr, e_max=e_max)
     fields = ("distance", "e_final", "d_final", "net_indel")
     _same_lv(got, want, fields)

@@ -6,11 +6,10 @@
   diagonal and back), rows needing 10-30 edits and rows that fail;
   integers and tokens identical.
 * K5's mismatch masks (csrc/lv_onehot.cu MismatchMasks) replayed in plain
-  torch: both builds of the words per diagonal (the four-byte XOR fold in
-  lvk::load4's byte order, and one compare per lane as __ballot_sync
-  gathers it), then the first set bit from p as the kernel's extension
-  walks them, against a brute-force next mismatch with the free prefix
-  and the sentinels, across word boundaries.
+  torch: the words per diagonal as the kernel's ballots gather them (one
+  compare per lane), then the first set bit from p as its extension walks
+  them, against a brute-force next mismatch with the free prefix and the
+  sentinels, across word boundaries.
 """
 import numpy as np
 import pytest
@@ -18,7 +17,7 @@ import torch
 
 from snap_rnaseq_tpu.ops import cigar as jcg
 from snap_rnaseq_tpu_torch.ops import cigar as tcg
-from torch_lv_cases import E_MAX_CIGAR, cigar_rows
+from snap_rnaseq_tpu_torch.tools.cigar_cases import E_MAX_CIGAR, cigar_rows
 
 ROW_SLACK = 8          # lvk::ROW_SLACK, bytes after each staged row
 
@@ -57,42 +56,6 @@ def _staged(pats, texts, t_len, P, e_max):
     return torch.from_numpy(pat), torch.from_numpy(txt)
 
 
-def _load4(rows, at):
-    """lvk::load4: four bytes from `at`, little-endian (byte q at bit 8q)."""
-    return (rows[:, at] | rows[:, at + 1] << 8 | rows[:, at + 2] << 16
-            | rows[:, at + 3] << 24)
-
-
-def _masks_xor(pat, txt, free, P, e_max):
-    """The XOR build: word w of diagonal d from eight four-byte XORs, each
-    byte folded onto its low bit and the four low bits gathered by the
-    multiply, in 32-bit arithmetic; clipped to P and the free prefix.
-    (B, words, D) int64."""
-    D, NW = 2 * e_max + 1, (P + 31) // 32
-    out = torch.zeros((pat.shape[0], NW, D), dtype=torch.int64)
-    for w in range(NW):
-        p0 = 32 * w
-        n = min(32, P - p0)
-        for d in range(D):
-            bits = torch.zeros(pat.shape[0], dtype=torch.int64)
-            for j in range(0, n, 4):
-                x = _load4(pat, p0 + j) ^ _load4(txt, d + p0 + j)
-                x = x | x >> 4
-                x = x | x >> 2
-                x = x | x >> 1
-                prod = ((x & 0x01010101) * 0x01020408) & 0xFFFFFFFF
-                bits = bits | (prod >> 24) << j
-            if n < 32:
-                bits = bits & ((1 << n) - 1)
-            nf = free - p0
-            keep = torch.where(
-                nf >= 32, 0,
-                (torch.full_like(nf, 0xFFFFFFFF) << nf.clamp(0, 31))
-                & 0xFFFFFFFF)
-            out[:, w, d] = torch.where(nf > 0, bits & keep, bits)
-    return out
-
-
 def _masks_ballot(pat, txt, free, P, e_max):
     """The ballot build: lane b of word w compares position 32 w + b."""
     D, NW = 2 * e_max + 1, (P + 31) // 32
@@ -111,18 +74,28 @@ def _masks_ballot(pat, txt, free, P, e_max):
     return out
 
 
-def _extend(words, d, p, end):
-    """MismatchMasks::operator(): the first set bit at or after p (the word
-    shifted right by p & 31, then the following words), clipped to end."""
-    w, q = p >> 5, p
-    x = int(words[w, d]) >> (p & 31)
-    while x == 0:
-        w += 1
-        q = 32 * w
-        if q >= end:
-            return end
-        x = int(words[w, d])
-    return min(q + (x & -x).bit_length() - 1, end)
+def _ctz(x):
+    """Trailing zeros of each nonzero int64 (the position __ffs - 1)."""
+    return torch.log2((x & -x).double()).long()
+
+
+def _extend(words, p, end):
+    """MismatchMasks::operator() at every row, diagonal and position p:
+    the first set bit at or after p (the word shifted right by p & 31,
+    else the first nonzero word after it), clipped to end.  words (B, NW,
+    D); p (n,); end (B, D, n).  Returns (B, D, n)."""
+    B, NW, D = words.shape
+    big = torch.iinfo(torch.int64).max
+    # after[:, w]: the first set bit in a word after w, else big
+    after = torch.full((B, NW + 1, D), big, dtype=torch.int64)
+    for w in range(NW - 1, -1, -1):
+        x = words[:, w]
+        after[:, w] = torch.where(x != 0, 32 * w + _ctz(x), after[:, w + 1])
+    w = p >> 5
+    x = words[:, w, :].transpose(1, 2) >> (p & 31)          # (B, D, n)
+    first = torch.where(x != 0, p + _ctz(x),
+                        after[:, w + 1, :].transpose(1, 2))
+    return torch.minimum(first, end)
 
 
 @pytest.mark.parametrize("e_max", [16, 17])
@@ -130,9 +103,9 @@ def _extend(words, d, p, end):
 def test_k5_mask_replay(P, e_max):
     """Rows with free prefixes 0, 31, 32, 33 and P (a word boundary and
     either side of it, and the whole read) and texts cut short of P + d,
-    whose sentinels must mismatch: both builds give the same words, and
-    the extension from every (diagonal, p) to two ends equals the first
-    q >= max(p, free) with pat[q] != txt[q + d]."""
+    whose sentinels must mismatch: the extension from every (diagonal, p)
+    to two ends equals the first q >= max(p, free) with
+    pat[q] != txt[q + d]."""
     rng = np.random.default_rng(100 * e_max + P)
     B, T = 10, P + e_max
     pats = rng.integers(0, 4, (B, P), dtype=np.uint8)
@@ -147,22 +120,18 @@ def test_k5_mask_replay(P, e_max):
     t_len = np.where(np.arange(B) < 5, T, P // 2 - 1)
     pat, txt = _staged(pats, texts, t_len, P, e_max)
     fr = torch.from_numpy(free)
-    words = _masks_xor(pat, txt, fr, P, e_max)
-    assert torch.equal(words, _masks_ballot(pat, txt, fr, P, e_max))
+    words = _masks_ballot(pat, txt, fr, P, e_max)
     D = 2 * e_max + 1
-    for b in range(B):
-        pb, tb = pat[b].tolist(), txt[b].tolist()
-        for d in range(D):
-            # brute force: the next mismatch at or after each p, else P
-            nxt, cur = [P] * (P + 1), P
-            for q in range(P - 1, -1, -1):
-                if q >= free[b] and pb[q] != tb[q + d]:
-                    cur = q
-                nxt[q] = cur
-            for p in range(P):
-                for end in (P, int(rng.integers(p + 1, P + 1))):
-                    assert _extend(words[b], d, p, end) == min(nxt[p], end), \
-                        (b, d, p, end)
+    # brute force: the next mismatch at or after each p on each diagonal,
+    # else P (a reversed running minimum)
+    q = torch.arange(P)
+    d = torch.arange(D)
+    mm = ((q >= fr[:, None, None])
+          & (pat[:, None, :P] != txt[:, d[:, None] + q[None, :]]))
+    nxt = torch.where(mm, q, P).flip(2).cummin(2).values.flip(2)
+    ends = torch.from_numpy(rng.integers(q + 1, P + 1, (B, D, P)))
+    for end in (torch.full((B, D, P), P), ends):
+        assert torch.equal(_extend(words, q, end), torch.minimum(nxt, end))
     # row 5 (free 0, text cut to P // 2 - 1): on the last diagonal every
     # position of the last word reads a sentinel, so all its bits are set
     NW = (P + 31) // 32
