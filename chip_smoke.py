@@ -8,10 +8,14 @@ non-zero and prints no result without them.  Every phase raises on
 failure; nothing is caught.
 
 1. Build: the hand-written kernels are compiled from csrc/ (one nvcc per
-   source, all at once); prints the build seconds, the card's name and
-   power limit, each kernel's registers and spills (`-Xptxas -v`) and the
-   SASS instructions per iteration of K2's and K4's column loops and of
-   the innermost loops of the three LV kernels (tools/sass_loops.py).
+   library, all at once: K2 is 13 libraries, 1-4 pattern words and one per
+   word count from 5 to 16); prints the build seconds (each library's
+   too), the card's name and power limit, each kernel's registers and
+   spills (`-Xptxas -v`) and the SASS instructions per iteration of K2's
+   and K4's column loops at W = 3-5 and of the innermost loops of the
+   three LV kernels, with tools/sass_loops.py's cycles an iteration (the
+   dependent chain, in-order issue, and issue with loads as fast as
+   arithmetic).
 2. Kernel checks: K1 (LV-lanes), K2 (packed bitpar, forward and every
    mate-rescue form), K3 (LV-CIGAR), K4 (bitpar over code rows) and K5
    (LV-lanes over per-diagonal mismatch masks) each against its plain PyTorch
@@ -23,7 +27,9 @@ failure; nothing is caught.
    against K1, both timed on the same rows);
    integers must be bit-identical and log-probabilities within rtol/atol
    1e-5.  K2's rescue form is also run and timed at 1-32 chunks per row
-   (the split scan), each count giving the same answer.
+   (the split scan), each count giving the same answer.  Reads past 128
+   bases: K2 forward, in every flag form and at the mate rescue's window,
+   and K4 in each flag form, at P = 150, 250 and 512.
 3. Golden: tests/test_golden.py's and tests/test_golden_paired_rna.py's
    datasets through the port's `index` + `single`, `index` + `paired` and
    `index` + `transcriptome` + RNA `single` CLI on the card must reproduce
@@ -36,6 +42,9 @@ failure; nothing is caught.
       (substitutions, indels, both strands);
    b. `paired -bs 1024` on 16 batches of 1024 simulated pairs (insert
       200-400, 1% substitutions);
+   a', b'. the same two commands on 150 bp reads and pairs from the same
+      genome and simulators, 8 batches of 1024 each (no engine-alone
+      runs);
    c. RNA: an annotation made from the seed at the human annotation's
       gene density (about 1,300 genes, 4 isoforms each, 3-12 exons of
       80-400 bp), its transcriptome built by `transcriptome`, then RNA
@@ -54,8 +63,8 @@ failure; nothing is caught.
    wall ms per batch, and under torch.profiler the device's busy ms, its
    idle share, device operations and the hand-written kernels' ms per
    batch; for pairs also the pair-found share and the rescued ends.
-5. stringz: the port's tools/stringz at its defaults on the card; K4 must
-   have launched.
+5. stringz: the port's tools/stringz at its defaults (-P 100) and at
+   -P 150 on the card; K4 must have launched in each.
 6. Path shapes: during each main path's run (4a, 4b, 4c, 5) every call of
    a kernel wrapper is counted by its argument shapes, and the first call
    of each shape is recorded with a copy of its inputs.  Each recorded
@@ -87,6 +96,9 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 GENOME_BASES = 64_000_000
 N_BATCHES, BATCH = 16, 1024
 READ_LEN = 100
+LONG_READ_LEN = 150                # phase 4's second DNA pair of runs
+N_BATCHES_LONG = 8
+LONG_P = (150, 250, 512)           # phase 2's reads past four words
 # roofline inputs: HBM bytes/s (NVIDIA H100 SXM data sheet); the 32-bit
 # integer/logic peak is derived from the card (int32_ops_per_s)
 HBM_BYTES_PER_S = 3.35e12
@@ -401,6 +413,26 @@ def packed_cases(rng, B, P, TXT, off, reverse, free_start):
     return pats, words
 
 
+def k2_form(dev, rng, B, P, TXT, off, reverse, free_start, track_pos):
+    """K2 in one flag form on packed_cases rows against the plain version
+    on the scanned columns; returns the plain version's answer."""
+    import torch
+    from snap_rnaseq_tpu_torch.ops import bitpar, u32
+    to = lambda a: torch.from_numpy(a).to(dev)
+    pats, words = packed_cases(rng, B, P, TXT, off, reverse, free_start)
+    pat, w = to(pats), u32.from_numpy(words, dev)
+    tl = to(np.full(B, TXT, np.int32))
+    flags = dict(track_pos=track_pos, free_start=free_start)
+    got = bitpar.bitpar_packed(pat, w, tl, P=P, TXT=TXT, packed_off=off,
+                               reverse=reverse, **flags)
+    text = bitpar.unpack_words(w)[:, off:off + TXT]
+    want = bitpar.bitpar_distance_plain(
+        pat, text.flip(1) if reverse else text, tl, P=P, **flags)
+    assert_same(f"K2 P={P} form r={reverse} f={free_start} t={track_pos}",
+                got, want)
+    return want
+
+
 def check_k2_rescue(dev, rng):
     """K2 in every flag form: the seven others at a small size, then the
     mate-rescue form at the rescue's shape: 1024 pairs x 2 mate candidates
@@ -410,34 +442,13 @@ def check_k2_rescue(dev, rng):
     from snap_rnaseq_tpu_torch.ops import bitpar, u32
     scan_chunks = bitpar.scan_chunks
     to = lambda a: torch.from_numpy(a).to(dev)
-
-    def case(B, P, TXT, off, reverse, free_start, track_pos):
-        pats, words = packed_cases(rng, B, P, TXT, off, reverse,
-                                   free_start)
-        pat, w = to(pats), u32.from_numpy(words, dev)
-        tl = to(np.full(B, TXT, np.int32))
-        kw = dict(P=P, TXT=TXT, packed_off=off, reverse=reverse,
-                  free_start=free_start, track_pos=track_pos)
-        flags = dict(track_pos=track_pos, free_start=free_start)
-
-        def plain():
-            text = bitpar.unpack_words(w)[:, off:off + TXT]
-            return bitpar.bitpar_distance_plain(
-                pat, text.flip(1) if reverse else text, tl, P=P, **flags)
-
-        got = bitpar.bitpar_packed(pat, w, tl, **kw)
-        want = plain()
-        assert_same(f"K2 form r={reverse} f={free_start} t={track_pos}",
-                    got, want)
-        return want
-
     for r in (False, True):
         for f in (False, True):
             for t in (False, True):
                 if (r, f, t) != (True, True, True):
-                    case(2048, 37, 300, 5, r, f, t)
+                    k2_form(dev, rng, 2048, 37, 300, 5, r, f, t)
     B, TXT = 4096, 1084
-    want = case(B, READ_LEN, TXT, 0, True, True, True)
+    want = k2_form(dev, rng, B, READ_LEN, TXT, 0, True, True, True)
     # the split scan's chunk count at the rescue's shape, forced in place
     # of scan_chunks' choice: each count gives the same answer; device
     # time per launch
@@ -466,14 +477,14 @@ def check_k2_rescue(dev, rng):
                 within_e_max=int(((want >> 12) <= 17).sum()))
 
 
-def check_k4(dev, rng):
-    """K4 at the stringz tool's width: 16,384 rows, P = 100, TXT = 131 u8
-    code rows, codes >= 4, the padding byte 255 and t_len < TXT included;
-    the plain (global-start) form the tool runs, then free_start and
-    track_pos."""
+def check_k4(dev, rng, P=READ_LEN):
+    """K4 at the stringz tool's width: 16,384 rows, P = 100 (or the given
+    read length), TXT = P + 31 u8 code rows, codes >= 4, the padding byte
+    255 and t_len < TXT included; the plain (global-start) form the tool
+    runs, then free_start and track_pos."""
     import torch
     from snap_rnaseq_tpu_torch.ops import bitpar
-    B, P, TXT = 16_384, READ_LEN, READ_LEN + 31
+    B, TXT = 16_384, P + 31
     pats, texts, _ = edit_cases(rng, B, P, TXT, 6)
     texts[rng.random((B, TXT)) < 0.005] = 4
     texts[:256, TXT - 8:] = 255
@@ -484,10 +495,31 @@ def check_k4(dev, rng):
                   dict(track_pos=True, free_start=True)):
         got = bitpar.bitpar_rows(pat, txt, tl, P=P, **flags)
         want = bitpar.bitpar_distance_plain(pat, txt, tl, P=P, **flags)
-        assert_same(f"K4 {flags}", got, want)
+        assert_same(f"K4 P={P} {flags}", got, want)
     want = bitpar.bitpar_distance_plain(pat, txt, tl, P=P)
     return dict(name="K4_bitpar_rows", rows=B, max_abs_err=0.0,
                 within_6=int((want <= 6).sum()))
+
+
+def check_long_reads(dev, rng):
+    """Reads past four pattern words (P = 150, 250, 512: W = 5, 8, 16): K2
+    forward at the prefilter's TXT = P + 16 (32,768 rows, packed_off 16,
+    pad codes), K2 in every flag form (2,048 rows, TXT = P + 200), K2's
+    mate-rescue form over the default window WLEN = 950 + P + 34 (4,096
+    rows), and K4 in each of its forms at stringz's width; each against
+    its plain version."""
+    rows = 0
+    for P in LONG_P:
+        for r in (False, True):
+            for f in (False, True):
+                for t in (False, True):
+                    k2_form(dev, rng, 2048, P, P + 200, 5, r, f, t)
+        k2_form(dev, rng, 32_768, P, P + 16, 16, False, False, False)
+        k2_form(dev, rng, 4096, P, 950 + P + 34, 0, True, True, True)
+        check_k4(dev, rng, P)
+        rows += 8 * 2048 + 32_768 + 4096 + 16_384
+    return dict(name=f"K2 (every form) and K4 at P = {LONG_P}", rows=rows,
+                max_abs_err=0.0)
 
 
 def check_k5(dev, rng):
@@ -1033,31 +1065,31 @@ def golden_phase(tmp, device="cuda"):
 
 # ---------------------------------------------------------------- phase 4
 
-def mutate(seg, rng, indel_rate):
-    """A read from `seg` (the read length plus 8 spare bases, for a
+def mutate(seg, rng, indel_rate, L=READ_LEN):
+    """A read of L bases from `seg` (L plus 8 spare bases, for a
     deletion): ~1% substitutions, then with probability `indel_rate` one
     1-3 base insertion or deletion in the middle."""
     seg = seg.copy()
-    n_sub = rng.binomial(READ_LEN, 0.01)
+    n_sub = rng.binomial(L, 0.01)
     if n_sub:
-        p = rng.integers(0, READ_LEN, n_sub)
+        p = rng.integers(0, L, n_sub)
         seg[p] = (seg[p] + rng.integers(1, 4, n_sub)) % 4
     if rng.random() < indel_rate:
-        p, m = int(rng.integers(20, READ_LEN - 20)), int(rng.integers(1, 4))
+        p, m = int(rng.integers(20, L - 20)), int(rng.integers(1, 4))
         seg = (np.delete(seg, np.arange(p, p + m)) if rng.random() < 0.5
                else np.insert(seg, p, rng.integers(0, 4, m)))
-    return seg[:READ_LEN].astype(np.uint8)
+    return seg[:L].astype(np.uint8)
 
 
-def simulate_reads(codes, n, rng):
-    """100 bp reads: ~1% substitutions, 15% with a 1-3 base indel, half
-    reverse-complemented; returns (true 0-based start, rc, codes)."""
-    L = READ_LEN
+def simulate_reads(codes, n, rng, L=READ_LEN):
+    """Reads of L bases (100 unless given): ~1% substitutions, 15% with a
+    1-3 base indel, half reverse-complemented; returns (true 0-based
+    start, rc, codes)."""
     G = codes.size
     starts = rng.integers(1000, G - L - 1000, n)
     out = []
     for i, s in enumerate(starts):
-        r = mutate(codes[s:s + L + 8], rng, 0.15)
+        r = mutate(codes[s:s + L + 8], rng, 0.15, L)
         rc = bool(rng.random() < 0.5)
         if rc:
             r = (3 - r[::-1]).astype(np.uint8)
@@ -1132,19 +1164,22 @@ def wait_line(stdout):
                  if l.startswith("wait profile")), None)
 
 
-def single_real_phase(tmp, codes, idx, index_s, n_reads, batch):
+def single_real_phase(tmp, codes, idx, index_s, n_reads, batch,
+                      L=READ_LEN, engine=True):
+    """`single -bs 1024 -pf` on simulated reads of L bases; then, with
+    `engine`, the engine alone on the same reads."""
     from snap_rnaseq_tpu_torch.utils.tables import decode_bases
     rng = np.random.default_rng(20261016)
     # the id carries the true start; SAM POS is 1-based within the one
     # chromosome, so POS - 1 is directly comparable
-    reads = simulate_reads(codes, n_reads, rng)
-    fq = os.path.join(tmp, "reads.fq")
+    reads = simulate_reads(codes, n_reads, rng, L)
+    fq = os.path.join(tmp, f"reads{L}.fq")
     with open(fq, "wb") as f:
         for i, (s, rc, r) in enumerate(reads):
             f.write(b"@r%d_%d_%d\n" % (i, s, rc) + decode_bases(r)
-                    + b"\n+\n" + b"I" * READ_LEN + b"\n")
-    out = os.path.join(tmp, "out.sam")
-    perf = os.path.join(tmp, "perf.tsv")
+                    + b"\n+\n" + b"I" * L + b"\n")
+    out = os.path.join(tmp, f"out{L}.sam")
+    perf = os.path.join(tmp, f"perf{L}.tsv")
     stdout, launches, calls, wall_s, peak = counted_cli(
         ["single", idx, fq, "-o", out, "-bs", str(batch), "--device",
          "cuda", "-pf", perf], SINGLE_PATH)
@@ -1159,29 +1194,32 @@ def single_real_phase(tmp, codes, idx, index_s, n_reads, batch):
             continue
         n_al += 1
         _, s, _ = f[0].split("_")
-        if abs(int(f[3]) - 1 - int(s)) <= 2 * READ_LEN:
+        if abs(int(f[3]) - 1 - int(s)) <= 2 * L:
             n_true += 1
-    res = dict(reads=total, align_s=align_s, reads_per_s=total / align_s,
-               wall_s=wall_s, aligned_share=n_al / total,
-               at_origin_share=n_true / total, index_build_s=index_s,
-               peak_device_bytes=peak, launches=launches,
-               wait_profile=wait_line(stdout))
-    res["engine"] = single_engine_phase(
-        idx, np.stack([r for _, _, r in reads]), batch)
+    res = dict(read_len=L, reads=total, align_s=align_s,
+               reads_per_s=total / align_s, wall_s=wall_s,
+               aligned_share=n_al / total, at_origin_share=n_true / total,
+               index_build_s=index_s, peak_device_bytes=peak,
+               launches=launches, wait_profile=wait_line(stdout))
+    if engine:
+        res["engine"] = single_engine_phase(
+            idx, np.stack([r for _, _, r in reads]), batch)
     if res["at_origin_share"] < 0.8:
         raise AssertionError(f"only {res['at_origin_share']:.3f} of reads "
                              "placed at their origin")
     return res, calls
 
 
-def paired_real_phase(tmp, codes, idx, index_s, n_pairs, batch):
-    """`paired -bs 1024 -pf` on wgsim-style pairs; each end's id carries
-    both true starts."""
+def paired_real_phase(tmp, codes, idx, index_s, n_pairs, batch,
+                      L=READ_LEN, engine=True):
+    """`paired -bs 1024 -pf` on wgsim-style pairs of L-base ends; each
+    end's id carries both true starts.  With `engine`, the engine alone
+    on the same pairs."""
     from snap_rnaseq_tpu_torch.utils.synth_genome import wgsim_pairs
     from snap_rnaseq_tpu_torch.utils.tables import decode_bases
-    r0, q0, r1, q1, p0, p1 = wgsim_pairs(codes, n_pairs, READ_LEN,
-                                         seed=20261017)
-    fq1, fq2 = os.path.join(tmp, "p_r1.fq"), os.path.join(tmp, "p_r2.fq")
+    r0, q0, r1, q1, p0, p1 = wgsim_pairs(codes, n_pairs, L, seed=20261017)
+    fq1 = os.path.join(tmp, f"p{L}_r1.fq")
+    fq2 = os.path.join(tmp, f"p{L}_r2.fq")
     with open(fq1, "wb") as f0, open(fq2, "wb") as f1:
         for i in range(n_pairs):
             rid = b"@p%d_%d_%d" % (i, p0[i], p1[i])
@@ -1189,8 +1227,8 @@ def paired_real_phase(tmp, codes, idx, index_s, n_pairs, batch):
                      + q0[i].tobytes() + b"\n")
             f1.write(rid + b"/2\n" + decode_bases(r1[i]) + b"\n+\n"
                      + q1[i].tobytes() + b"\n")
-    out = os.path.join(tmp, "paired.sam")
-    perf = os.path.join(tmp, "perf_p.tsv")
+    out = os.path.join(tmp, f"paired{L}.sam")
+    perf = os.path.join(tmp, f"perf_p{L}.tsv")
     stdout, launches, calls, wall_s, peak = counted_cli(
         ["paired", idx, fq1, fq2, "-o", out, "-bs", str(batch), "--device",
          "cuda", "-pf", perf], PAIRED_PATH)
@@ -1208,16 +1246,17 @@ def paired_real_phase(tmp, codes, idx, index_s, n_pairs, batch):
         end = 0 if flag & 0x40 else 1
         n_al[end] += 1
         truth = int(f[0].split("_")[1 + end])
-        if abs(int(f[3]) - 1 - truth) <= 2 * READ_LEN:
+        if abs(int(f[3]) - 1 - truth) <= 2 * L:
             n_true += 1
-    res = dict(pairs=total // 2, align_s=align_s,
+    res = dict(read_len=L, pairs=total // 2, align_s=align_s,
                pairs_per_s=total / 2 / align_s, wall_s=wall_s,
                aligned_share_end0=n_al[0] / n_pairs,
                aligned_share_end1=n_al[1] / n_pairs,
                at_origin_share=n_true / (2 * n_pairs), index_build_s=index_s,
                peak_device_bytes=peak, launches=launches,
                wait_profile=wait_line(stdout))
-    res["engine"] = paired_engine_phase(idx, r0, q0, r1, q1, batch)
+    if engine:
+        res["engine"] = paired_engine_phase(idx, r0, q0, r1, q1, batch)
     if res["at_origin_share"] < 0.8:
         raise AssertionError(f"only {res['at_origin_share']:.3f} of ends "
                              "placed at their origin")
@@ -1544,16 +1583,16 @@ def paired_engine_phase(idx, r0, q0, r1, q1, batch):
     return res
 
 
-def stringz_phase():
-    """The stringz tool at its defaults on the card, counters zeroed just
-    before and read just after, its kernel calls recorded."""
+def stringz_phase(argv=()):
+    """The stringz tool on the card (its defaults, or `argv`), counters
+    zeroed just before and read just after, its kernel calls recorded."""
     from snap_rnaseq_tpu_torch.ops import kernels as kx
     from snap_rnaseq_tpu_torch.tools import stringz
     buf = io.StringIO()
     with recorded_calls() as calls:
         kx.reset_launches()
         with contextlib.redirect_stdout(buf):
-            rc = stringz.main([])
+            rc = stringz.main(list(argv))
         launches = dict(kx.LAUNCHES)
     if rc != 0:
         raise RuntimeError(f"stringz returned {rc}")
@@ -1581,7 +1620,7 @@ def kernel_label(mangled):
 def build_report(libs):
     """Each kernel's registers and spill bytes from the build (`-Xptxas
     -v`), and the SASS size of the innermost loops of K2 and K4
-    (tools/sass_loops.py; W = 3 and 4, i.e. P = 65-128) and of every LV
+    (tools/sass_loops.py; W = 3-5, i.e. P = 65-160) and of every LV
     kernel instance (K1, K3, K5)."""
     from snap_rnaseq_tpu_torch.ops import kernels as kx
     from snap_rnaseq_tpu_torch.tools import sass_loops
@@ -1594,13 +1633,15 @@ def build_report(libs):
     if sass_loops.cuobjdump() is None:
         log("sass: cuobjdump not found")
         return
-    for name in ("bitpar_packed", "bitpar_rows", "lv_lanes", "lv_cigar",
-                 "lv_onehot"):
+    for name in ("bitpar_packed", "bitpar_packed_w5", "bitpar_rows",
+                 "lv_lanes", "lv_cigar", "lv_onehot"):
         for fn, loops in sass_loops.report(libs[name]).items():
             label = kernel_label(fn)
-            if name.startswith("lv") or "<3," in label or "<4," in label:
-                log(f"sass {label}: loop bodies of "
-                    f"{[n for n, _ in loops]} instructions")
+            if name.startswith("lv") or any(
+                    f"<{w}," in label for w in (3, 4, 5)):
+                log(f"sass {label}: loop bodies [instructions, cycles an "
+                    "iteration: chain, issue, issue with fast loads]: "
+                    f"{[[n, *t] for n, _, *t in loops]}")
 
 
 def kernel_entry(name, source, replaces, by_path, at_path):
@@ -1650,7 +1691,9 @@ def main():
 
     t0 = time.time()
     libs = kx.build_all()
-    log(f"build: {time.time() - t0:.3f} s for {len(kx.SOURCES)} kernels")
+    log(f"build: {time.time() - t0:.3f} s for {len(kx.SOURCES)} libraries; "
+        "seconds to each one's end: " + json.dumps(
+            {k: round(v, 1) for k, v in kx.BUILD_SECONDS.items()}))
     build_report(libs)
     log(f"peaks: {HBM_BYTES_PER_S:.4g} B/s HBM, {int32_ops_per_s():.4g} "
         "int32 op/s")
@@ -1658,7 +1701,8 @@ def main():
     rng = np.random.default_rng(7)
     checks = [check_k1(dev, rng), check_k1_rescue(dev, rng),
               check_k2(dev, rng), check_k2_rescue(dev, rng),
-              check_k3(dev, rng), check_k4(dev, rng), check_k5(dev, rng)]
+              check_k3(dev, rng), check_k4(dev, rng), check_k5(dev, rng),
+              check_long_reads(dev, rng)]
     for c in checks:
         log(f"{c['name']}: {c['rows']} rows match the plain version, "
             f"max_abs_err {c['max_abs_err']}")
@@ -1675,23 +1719,37 @@ def main():
         paired, paired_calls = paired_real_phase(
             tmp, codes, idx, index_s, N_BATCHES * BATCH, BATCH)
         log("real size, paired: " + json.dumps(paired))
+        single150, single150_calls = single_real_phase(
+            tmp, codes, idx, index_s, N_BATCHES_LONG * BATCH, BATCH,
+            LONG_READ_LEN, engine=False)
+        log("real size, single150: " + json.dumps(single150))
+        paired150, paired150_calls = paired_real_phase(
+            tmp, codes, idx, index_s, N_BATCHES_LONG * BATCH, BATCH,
+            LONG_READ_LEN, engine=False)
+        log("real size, paired150: " + json.dumps(paired150))
         rna, rna_calls = rna_real_phase(tmp, codes, idx, index_s,
                                         N_BATCHES * BATCH, N_BATCHES * BATCH,
                                         BATCH)
         for name, r in rna.items():
             log(f"real size, {name}: " + json.dumps(r))
-    lines, sz_launches, sz_calls = stringz_phase()
-    for line in lines:
-        log(f"stringz: {line}")
-    log(f"stringz launches: {json.dumps(sz_launches)}")
+    sz = {}
+    for name, argv in (("stringz", []),
+                       ("stringz150", ["-P", str(LONG_READ_LEN)])):
+        lines, launches, calls = sz[name] = stringz_phase(argv)
+        for line in lines:
+            log(f"{name}: {line}")
+        log(f"{name} launches: {json.dumps(launches)}")
 
     # phase 6: every kernel call shape of each main path, on its inputs
     by_path = dict(single=single["launches"], paired=paired["launches"],
-                   stringz=sz_launches,
+                   single150=single150["launches"],
+                   paired150=paired150["launches"],
+                   **{name: v[1] for name, v in sz.items()},
                    **{name: r["launches"] for name, r in rna.items()})
     at_path = {p: check_path_calls(p, c) for p, c in (
         ("single", single_calls), ("paired", paired_calls),
-        ("stringz", sz_calls), *rna_calls.items())}
+        ("single150", single150_calls), ("paired150", paired150_calls),
+        *((name, v[2]) for name, v in sz.items()), *rna_calls.items())}
     k3_warp_sweep(single_calls)
     k5_vs_k1(rna_calls["rna_single_onehot"])
     log(f"total: {time.time() - t_start:.1f} s")

@@ -143,7 +143,9 @@ __global__ void bitpar_packed_kernel(const uint8_t* __restrict__ pattern,
                                      int TXT, int packed_off, int B,
                                      int chunk_len, int warm, int chunk_shift,
                                      int* __restrict__ out) {
-  __shared__ typename bpk::PeqVec<W>::T tab[bpk::kCodes][bpk::kThreads];
+  using V = typename bpk::PeqVec<W>::T;
+  extern __shared__ __align__(16) uint8_t smem[];
+  V (*tab)[bpk::kThreads] = reinterpret_cast<V (*)[bpk::kThreads]>(smem);
   const int t = blockIdx.x * blockDim.x + threadIdx.x;
   const int i = t >> chunk_shift;                 // the row
   const int chunk = t & ((1 << chunk_shift) - 1);
@@ -178,8 +180,11 @@ cudaError_t launch(const void* pattern, int P, const void* words, int NW,
                    cudaStream_t stream) {
   const int threads = bpk::kThreads;
   const long long n = (long long)B << chunk_shift;
+  // at most 40 KB (W = 16), within the 48 KB a block has without opting in
+  constexpr int smem = bpk::table_bytes<W>(bpk::kThreads);
+  static_assert(smem <= 48 * 1024, "K2's Peq table fits 48 KB");
   bitpar_packed_kernel<W, REVERSE, FREE_START, TRACK_POS>
-      <<<(unsigned)((n + threads - 1) / threads), threads, 0, stream>>>(
+      <<<(unsigned)((n + threads - 1) / threads), threads, smem, stream>>>(
           static_cast<const uint8_t*>(pattern), P,
           static_cast<const uint32_t*>(words), NW,
           static_cast<const int*>(t_len), TXT, packed_off, B, chunk_len,
@@ -214,7 +219,9 @@ cudaError_t by_flags(int flags, const void* pattern, int P, const void* words,
 }  // namespace
 
 // pattern (B, P) u8 codes; words (B, NW) packed u32 (int32 bits); t_len
-// (B,) i32; out (B,) i32.  Needs P <= 128 and packed_off + TXT <= 8 * NW.
+// (B,) i32; out (B,) i32.  Needs P <= 128 (W = 1-4), or with BPK_WORDS
+// defined W = ceil(P / 32) = BPK_WORDS (P = 129-512 over 12 libraries,
+// ops/kernels.py); and packed_off + TXT <= 8 * NW.
 // reverse, free_start, track_pos: 0 or 1.  The scan geometry (ops/bitpar.py
 // scan_chunks): n_chunks a power of two <= 32, chunk_len * n_chunks >=
 // TXT, and n_chunks = 1 unless free_start with warm >= 2P.
@@ -235,6 +242,13 @@ extern "C" int bitpar_packed_launch(const void* pattern, int P,
   auto s = static_cast<cudaStream_t>(stream);
   const int flags = (reverse ? 1 : 0) | (free_start ? 2 : 0) |
                     (track_pos ? 4 : 0);
+#ifdef BPK_WORDS   // a library for one word count, 5-16
+  if ((P + 31) / 32 != BPK_WORDS)
+    return static_cast<int>(cudaErrorInvalidValue);
+  return by_flags<BPK_WORDS>(flags, pattern, P, words, NW, t_len, TXT,
+                             packed_off, B, chunk_len, warm, chunk_shift, out,
+                             s);
+#else              // 1-4 words, P <= 128
   switch ((P + 31) / 32) {
     case 1: return by_flags<1>(flags, pattern, P, words, NW, t_len, TXT, packed_off, B, chunk_len, warm, chunk_shift, out, s);
     case 2: return by_flags<2>(flags, pattern, P, words, NW, t_len, TXT, packed_off, B, chunk_len, warm, chunk_shift, out, s);
@@ -242,4 +256,5 @@ extern "C" int bitpar_packed_launch(const void* pattern, int P,
     case 4: return by_flags<4>(flags, pattern, P, words, NW, t_len, TXT, packed_off, B, chunk_len, warm, chunk_shift, out, s);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
+#endif
 }

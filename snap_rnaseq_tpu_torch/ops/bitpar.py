@@ -34,6 +34,7 @@ from __future__ import annotations
 
 import torch
 
+from ..constants import MAX_READ_LENGTH
 from . import u32
 
 
@@ -58,6 +59,21 @@ def pack_peq(pattern: torch.Tensor, P: int) -> torch.Tensor:
 SCAN_THREADS = 32_768
 MIN_CHUNK = 32          # columns; shorter chunks would be mostly warm-up
 MAX_CHUNKS = 32         # a row's chunks share one warp
+# the most text columns, warm-ups included, that the rows of one split scan
+# may run between them: beyond it the card is busy and another halving of
+# the chunks adds more warm-up than it takes off a row's chain.  Measured
+# at the mate rescue's 4,096 rows on an H100 (bitpar_ab.py, PERF.md): 4
+# chunks beat 8 by 1.4-1.6x at P = 250 (8 would scan 17.1M columns) and
+# P = 512 (26.0M; 4 scan 14.9M); 8 beat 4 at P = 100 and 150 (9.9M, 12.6M).
+SCAN_COLUMNS = 1 << 24
+
+
+def scanned_columns(TXT: int, n_chunks: int, warm: int) -> int:
+    """Columns one row's n_chunks chunks scan between them, warm-ups
+    included."""
+    L = -(-TXT // n_chunks)
+    return TXT + sum(min(q * L, warm) for q in range(1, n_chunks)
+                     if q * L < TXT)
 
 
 def scan_chunks(B: int, P: int, TXT: int,
@@ -70,13 +86,15 @@ def scan_chunks(B: int, P: int, TXT: int,
     the chunk.  Chunk q covers columns [q * chunk_len, (q + 1) * chunk_len)
     (cut at TXT), scanned from max(0, q * chunk_len - warm).  n_chunks is a
     power of two: the least that brings B * n_chunks to SCAN_THREADS,
-    keeping chunks of at least MIN_CHUNK columns.  A global start depends
-    on every earlier column: one chunk."""
+    keeping chunks of at least MIN_CHUNK columns and the B rows' scanned
+    columns within SCAN_COLUMNS.  A global start depends on every earlier
+    column: one chunk."""
     if not free_start or TXT <= 0:
         return max(TXT, 0), 0, 1
     n_chunks = 1
     while (n_chunks < MAX_CHUNKS and B * n_chunks < SCAN_THREADS
-           and -(-TXT // (2 * n_chunks)) >= MIN_CHUNK):
+           and -(-TXT // (2 * n_chunks)) >= MIN_CHUNK
+           and B * scanned_columns(TXT, 2 * n_chunks, 2 * P) <= SCAN_COLUMNS):
         n_chunks *= 2
     return -(-TXT // n_chunks), 2 * P, n_chunks
 
@@ -198,8 +216,9 @@ def _checked_rows(pattern, t_len, P, B, dev):
     if tuple(pattern.shape) != (B, P) or t_len.shape[0] != B:
         raise ValueError(f"pattern {tuple(pattern.shape)} / t_len "
                          f"{tuple(t_len.shape)} vs {B} rows, P={P}")
-    if not 1 <= P <= 128:
-        raise ValueError(f"bitpar kernels take 1 <= P <= 128, got {P}")
+    if not 1 <= P <= MAX_READ_LENGTH:
+        raise ValueError(f"bitpar kernels take 1 <= P <= {MAX_READ_LENGTH}, "
+                         f"got {P}")
     return pattern, t_len
 
 
@@ -223,7 +242,7 @@ def bitpar_packed(pattern, words, t_len, *, P: int, TXT: int,
                          f"exceed {NW} packed words")
     chunk_len, warm, n = scan_chunks(B, P, TXT, free_start)
     out = torch.empty(B, dtype=torch.int32, device=dev)
-    err = kx.launcher("bitpar_packed")(
+    err = kx.launcher(kx.k2_library(P))(
         kx.ptr(pattern), P, kx.ptr(words), NW, kx.ptr(t_len), TXT,
         packed_off, int(reverse), int(free_start), int(track_pos),
         chunk_len, warm, n, B, kx.ptr(out), kx.stream())

@@ -1,11 +1,14 @@
 """Build, load and count the hand-written CUDA kernels.
 
 Each `csrc/*.cu` source is compiled by `nvcc` for `sm_90a` into a shared
-library with a plain C interface, loaded with ctypes.  Libraries are built
-at first use from the package's own sources into `csrc/_build/`, keyed by
-a hash of the source, the shared headers and the flags, so an edited kernel
-is rebuilt and an unchanged one is reused.  `build_all()` starts one nvcc
-per source at once and waits for all of them.  Each build's compiler
+library with a plain C interface, loaded with ctypes.  K2's source is
+compiled 13 times: once for 1-4 pattern words (reads up to 128 bases) and
+once for each word count from 5 to 16 (`-DBPK_WORDS=W`), so that its
+largest instances compile side by side.  Libraries are built at first use
+from the package's own sources into `csrc/_build/`, keyed by a hash of the
+source, the shared headers and the flags, so an edited kernel is rebuilt
+and an unchanged one is reused.  `build_all()` starts one nvcc per library
+at once and waits for all of them.  Each build's compiler
 output (`-Xptxas -v`: registers and spills per kernel) is kept beside its
 library, and `ptxas_report(name)` reads it.
 
@@ -28,6 +31,7 @@ import re
 import shutil
 import subprocess
 import threading
+import time
 
 import torch
 
@@ -41,11 +45,23 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 # source file per library; each exports C functions returning cudaError_t
 SOURCES = {
     "lv_lanes": "lv_lanes.cu",           # K1
-    "bitpar_packed": "bitpar_packed.cu",  # K2 (forward and rescue forms)
+    "bitpar_packed": "bitpar_packed.cu",  # K2 (forward and rescue), W 1-4
     "lv_cigar": "lv_cigar.cu",           # K3
     "bitpar_rows": "bitpar_rows.cu",      # K4
     "lv_onehot": "lv_onehot.cu",         # K5
 }
+
+
+def k2_library(P: int) -> str:
+    """K2's library for patterns of P bases: W = ceil(P / 32) words, one
+    library for W = 1-4 and one per word count above."""
+    W = (P + 31) // 32
+    return "bitpar_packed" if W <= 4 else f"bitpar_packed_w{W}"
+
+
+# K2 at W = 5-16 pattern words (P = 129-512)
+_DEFINES = {k2_library(32 * w): [f"-DBPK_WORDS={w}"] for w in range(5, 17)}
+SOURCES.update({name: "bitpar_packed.cu" for name in _DEFINES})
 _HEADERS = ("lv_common.cuh", "lv_warp.cuh", "bitpar_common.cuh")
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
@@ -64,6 +80,9 @@ _SIGNATURES = {
                   + [_P] * 6),
 }
 
+for _name in _DEFINES:
+    _SIGNATURES[_name] = _SIGNATURES["bitpar_packed"]
+
 # int(int) setters for measurement: force a launch variant (0: the
 # kernel's own choice), return the previous one
 _SETTERS = {"lv_cigar": "lv_cigar_set_warps"}     # K3 warps per block
@@ -71,6 +90,7 @@ _SETTERS = {"lv_cigar": "lv_cigar_set_warps"}     # K3 warps per block
 # K2 counts its forward (prefilter) and its rescue launches apart
 LAUNCHES = {"K1_lv_lanes": 0, "K2_bitpar_packed": 0, "K2_bitpar_rescue": 0,
             "K3_lv_cigar": 0, "K4_bitpar_rows": 0, "K5_lv_onehot": 0}
+BUILD_SECONDS: dict = {}
 _LOCK = threading.Lock()
 _LAUNCHERS: dict = {}
 _LIBS: dict = {}
@@ -95,8 +115,12 @@ def _nvcc() -> str:
     return path
 
 
+def _flags(name: str) -> list:
+    return NVCC_FLAGS + _DEFINES.get(name, [])
+
+
 def _so_path(name: str) -> str:
-    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    h = hashlib.sha256(" ".join(_flags(name)).encode())
     for f in (SOURCES[name],) + _HEADERS:
         with open(os.path.join(CSRC, f), "rb") as fh:
             h.update(fh.read())
@@ -106,29 +130,39 @@ def _so_path(name: str) -> str:
 def build_all(names=None) -> dict:
     """Compile every (or the named) library that is not built yet, all
     nvcc processes at once.  Returns {name: so_path}; raises with the
-    compiler's output if any build fails."""
+    compiler's output if any build fails.  BUILD_SECONDS[name] is each
+    build's wall time from the common start to its nvcc's exit."""
     names = list(SOURCES) if names is None else list(names)
     os.makedirs(BUILD_DIR, exist_ok=True)
-    procs, paths = {}, {}
+    procs, paths, t0 = {}, {}, time.time()
     for name in names:
         so = _so_path(name)
         paths[name] = so
         if os.path.exists(so):
             continue
         tmp = f"{so}.tmp{os.getpid()}"
-        cmd = [_nvcc(), *NVCC_FLAGS, "-I", CSRC, "-o", tmp,
+        cmd = [_nvcc(), *_flags(name), "-I", CSRC, "-o", tmp,
                os.path.join(CSRC, SOURCES[name])]
-        procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
-                                        stderr=subprocess.STDOUT), tmp, so)
+        log = open(tmp + ".log", "wb+")       # ptxas -v's report
+        procs[name] = (subprocess.Popen(cmd, stdout=log,
+                                        stderr=subprocess.STDOUT), tmp, so,
+                       log)
     errors = []
-    for name, (p, tmp, so) in procs.items():
-        out, _ = p.communicate()
-        if p.returncode != 0:
-            errors.append(f"nvcc {SOURCES[name]} failed:\n{out.decode()}")
-        else:
-            with open(so + ".log", "wb") as fh:      # ptxas -v's report
-                fh.write(out)
-            os.replace(tmp, so)
+    while procs:
+        for name, (p, tmp, so, log) in list(procs.items()):
+            if p.poll() is None:
+                continue
+            del procs[name]
+            BUILD_SECONDS[name] = time.time() - t0
+            log.close()
+            if p.returncode != 0:
+                with open(tmp + ".log") as fh:
+                    errors.append(f"nvcc {SOURCES[name]} failed:\n"
+                                  + fh.read())
+            else:
+                os.replace(tmp + ".log", so + ".log")
+                os.replace(tmp, so)
+        time.sleep(0.05)
     if errors:
         raise RuntimeError("\n".join(errors))
     return paths
@@ -138,24 +172,29 @@ def ptxas_report(name: str) -> list:
     """Registers and spill bytes of each kernel in library `name`, from
     the `-Xptxas -v` output saved beside its build: a list of
     {"function", "registers", "spill_stores", "spill_loads"}."""
-    rows, cur = [], None
     with open(_so_path(name) + ".log") as fh:
-        for line in fh:
-            m = re.search(r"Compiling entry function '([^']+)'", line)
-            if m:
-                cur = {"function": m.group(1)}
-                rows.append(cur)
-                continue
-            if cur is None:
-                continue
-            m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
-                          line)
-            if m:
-                cur["spill_stores"] = int(m.group(1))
-                cur["spill_loads"] = int(m.group(2))
-            m = re.search(r"Used (\d+) registers", line)
-            if m:
-                cur["registers"] = int(m.group(1))
+        return parse_ptxas(fh.read())
+
+
+def parse_ptxas(text: str) -> list:
+    """ptxas_report's rows from the text of an `-Xptxas -v` build."""
+    rows, cur = [], None
+    for line in text.splitlines():
+        m = re.search(r"Compiling entry function '([^']+)'", line)
+        if m:
+            cur = {"function": m.group(1)}
+            rows.append(cur)
+            continue
+        if cur is None:
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m:
+            cur["spill_stores"] = int(m.group(1))
+            cur["spill_loads"] = int(m.group(2))
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            cur["registers"] = int(m.group(1))
     return rows
 
 

@@ -19,6 +19,21 @@ import numpy as np
 import torch
 
 
+def random_pairs(B: int, P: int):
+    """The timed inputs: B random patterns of P codes and texts of P + 31
+    codes that start with a copy of the pattern, half of them with three
+    substitutions (numpy, seed 0)."""
+    rng = np.random.default_rng(0)
+    pat = rng.integers(0, 4, (B, P), dtype=np.uint8)
+    text = np.zeros((B, P + 31), np.uint8)
+    text[:, :P] = pat
+    sel = rng.random(B) < 0.5
+    for _ in range(3):
+        idx = rng.integers(0, P, B)
+        text[sel, idx[sel]] ^= 1
+    return pat, text
+
+
 def main(argv=None):
     p = argparse.ArgumentParser(prog="stringz")
     p.add_argument("-B", type=int, default=16384, help="batch size")
@@ -36,15 +51,8 @@ def main(argv=None):
 
     dev = resolve_device(a.device)
     sync = torch.cuda.synchronize if dev.type == "cuda" else (lambda: None)
-    rng = np.random.default_rng(0)
     B, P, k = a.B, a.P, a.k
-    pat = rng.integers(0, 4, (B, P), dtype=np.uint8)
-    text = np.zeros((B, P + 31), np.uint8)
-    text[:, :P] = pat
-    sel = rng.random(B) < 0.5
-    for _ in range(3):
-        idx = rng.integers(0, P, B)
-        text[sel, idx[sel]] ^= 1
+    pat, text = random_pairs(B, P)
     to = lambda x: torch.from_numpy(x).to(dev)
     pat_t, text_t = to(pat), to(text)
     p_len = to(np.full(B, P, np.int32))

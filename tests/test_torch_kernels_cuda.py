@@ -223,7 +223,11 @@ FLAGS = [(r, f, tr) for r in (False, True) for f in (False, True)
 @pytest.mark.parametrize("P,TXT,off", [
     (100, 1084, 0), (37, 300, 5),
     # 4,096 rows: 8 chunks, 1,088 = 8 x 136 columns, and either side
-    (100, 1087, 0), (100, 1088, 0), (100, 1089, 0)])
+    (100, 1087, 0), (100, 1088, 0), (100, 1089, 0),
+    # reads past four pattern words, over the mate rescue's window WLEN =
+    # 950 + P + 34 at the default spacing (P = 129: five words, one bit in
+    # the fifth)
+    (129, 1113, 3), (150, 1134, 0), (250, 1234, 5), (512, 1496, 0)])
 @pytest.mark.parametrize("reverse,free_start,track_pos", FLAGS)
 def test_k2_every_form_matches_plain(card, P, TXT, off, reverse, free_start,
                                      track_pos):
@@ -250,7 +254,8 @@ def test_k2_every_form_matches_plain(card, P, TXT, off, reverse, free_start,
             starts = [off + int(rng.integers(0, TXT - P)) if free_start
                       else off + TXT - P if reverse else off]
         for s in starts:
-            codes[i, s:s + P] = seg[::-1] if reverse else seg
+            if off <= s <= off + TXT - P:
+                codes[i, s:s + P] = seg[::-1] if reverse else seg
     words = pack_genome_4bit(codes.reshape(-1))[:B * NW].reshape(B, NW)
     t_len = rng.integers(TXT // 2, TXT + 1, B).astype(np.int32)
     pat, w = torch.from_numpy(pats).to(card), u32.from_numpy(words, card)
@@ -268,7 +273,7 @@ def test_k2_every_form_matches_plain(card, P, TXT, off, reverse, free_start,
         pat, text.flip(1) if reverse else text, tl, P=P, **flags)
     assert torch.equal(got, want)
     dist = want >> 12 if track_pos else want
-    assert (dist <= 8).any() and (dist > 8).any()
+    assert (dist <= max(8, P // 12)).any() and (dist > 8).any()
 
 
 @pytest.mark.parametrize("track_pos,free_start", [
@@ -293,6 +298,42 @@ def test_k4_matches_plain(card, track_pos, free_start):
     assert kernels.LAUNCHES["K4_bitpar_rows"] == before + 1
     want = bitpar.bitpar_distance_plain(to(pats), to(text), to(t_len), **kw)
     assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("track_pos,free_start", [
+    (False, False), (True, False), (False, True), (True, True)])
+@pytest.mark.parametrize("P,TXT", [(129, 160), (150, 181), (250, 281),
+                                   (512, 543), (150, 1234)])
+def test_k4_long_reads_match_plain(card, P, TXT, track_pos, free_start):
+    """K4 past four pattern words (P = 129-512, stringz's TXT = P + 31, and
+    a text of three staged tiles), codes >= 4, the padding byte 255 and
+    t_len < TXT; a row count that leaves the last block part full, and
+    row views that start one row into their tensors, so the staged spans
+    start at every alignment."""
+    rng = np.random.default_rng(P + TXT + 2 * track_pos + free_start)
+    B = 4096 + 37
+    pats = rng.integers(0, 4, (B + 1, P), dtype=np.uint8)
+    text = rng.integers(0, 4, (B + 1, TXT), dtype=np.uint8)
+    half = rng.random(B + 1) < 0.5
+    # where a global start can reach it at no cost, else anywhere
+    start = int(rng.integers(0, TXT - P + 1)) if free_start else 0
+    seg = pats[half].copy()
+    flip = rng.random(seg.shape) < 0.03
+    seg[flip] ^= 1
+    text[half, start:start + P] = seg
+    text[rng.random((B + 1, TXT)) < 0.01] = 4
+    text[:64, TXT - 9:] = 255
+    t_len = rng.integers(TXT // 2, TXT + 1, B).astype(np.int32)
+    to = lambda a: torch.from_numpy(a).to(card)
+    pat, txt = to(pats)[1:], to(text)[1:]
+    kw = dict(P=P, track_pos=track_pos, free_start=free_start)
+    before = kernels.LAUNCHES["K4_bitpar_rows"]
+    got = bitpar.bitpar_distance(pat, txt, to(t_len), **kw)
+    assert kernels.LAUNCHES["K4_bitpar_rows"] == before + 1
+    want = bitpar.bitpar_distance_plain(pat, txt, to(t_len), **kw)
+    assert torch.equal(got, want)
+    dist = want >> 12 if track_pos else want
+    assert (dist <= P // 10).any()
 
 
 @pytest.mark.parametrize("e_max,W,tables", [(31, 128, True), (5, 32, True),
@@ -352,6 +393,45 @@ def test_k3_at_cigar_width(card, B):
         assert (want.d_final < 0).any()
 
 
+@pytest.mark.parametrize("P", [150, 250])
+def test_lv_kernels_long_reads(card, P, monkeypatch):
+    """K1 and K5 at the single and paired e_max (16, 17) with free
+    prefixes, and K3 at the CIGAR paths' width (e_max 31, k 30, pattern and
+    text of P bases, cigar_rows' kinds), on reads of 150 and 250 bases,
+    against their plain versions; K5 also bit for bit against K1."""
+    rng = np.random.default_rng(900 + P)
+    B = 3000
+    to = lambda a: torch.from_numpy(a).to(card)
+    fields = ("distance", "e_final", "d_final", "net_indel")
+    for e_max in (16, 17):
+        pats, p_len, texts, t_len = _edit_cases(rng, B, P, P + e_max, e_max)
+        q = lv.phred_log_prob_device(
+            to(rng.integers(33, 74, (B, P)).astype(np.uint8)))
+        k = rng.integers(0, e_max + 1, B).astype(np.int32)
+        k[:B // 2] = e_max
+        fr = to(np.where(rng.random(B) < 0.3, rng.integers(0, P + 1, B),
+                         0).astype(np.int32))
+        args = (to(pats), to(p_len), to(texts), to(t_len), to(k), q)
+        want = lv._lv_distance_plain(*args, fr, e_max=e_max)
+        k1 = lv_cuda.lv_lanes(*args, fr, e_max=e_max)
+        _same_lv(k1, want, fields)
+        monkeypatch.setenv("SNAP_TPU_LV_LANES", "onehot")
+        before = kernels.LAUNCHES["K5_lv_onehot"]
+        k5 = lv.lv_distance(*args, fr, e_max=e_max)
+        assert kernels.LAUNCHES["K5_lv_onehot"] == before + 1
+        monkeypatch.delenv("SNAP_TPU_LV_LANES")
+        for f in fields + ("log_prob",):
+            assert torch.equal(getattr(k5, f), getattr(k1, f)), f
+        assert (want.distance >= 0).any() and (want.distance < 0).any()
+    c_args = [to(a) for a in cigar_rows(rng, 600, P)]
+    c_args += [to(np.full(600, E_MAX_CIGAR - 1, np.int32)), None]
+    got = lv_cuda.lv_cigar(*c_args, e_max=E_MAX_CIGAR, cigar_order=True)
+    want = lv._lv_distance_plain(*c_args, None, e_max=E_MAX_CIGAR,
+                                 cigar_order=True, keep_tables=True)
+    _same_lv(got, want, K3_SCRIPT)
+    assert (want.distance < 0).any() and (want.net_indel != 0).any()
+
+
 def test_cigars_on_card_equal_cpu(card):
     rng = np.random.default_rng(2)
     pats, p_len, texts, t_len = _edit_cases(rng, 256, 100, 128, 6)
@@ -365,17 +445,18 @@ def test_cigars_on_card_equal_cpu(card):
     assert t_gpu == t_cpu
 
 
-def test_aligner_on_card_equals_cpu(card):
+@pytest.mark.parametrize("L", [100, 150])
+def test_aligner_on_card_equals_cpu(card, L):
     codes = hg_like_genome(300_000, seed=3)
     index = build_index(genome_from_codes(codes), seed_len=20)
     rng = np.random.default_rng(1)
-    B, L = 256, 100
+    B = 256
     starts = rng.integers(0, codes.size - L - 4, B)
     reads = codes[starts[:, None] + np.arange(L)].copy()
     sub = rng.random((B, L)) < 0.02
     reads[sub] = (reads[sub] + 1) % 4
     for i in range(0, B, 5):                       # indel reads
-        p = int(rng.integers(20, 80))
+        p = int(rng.integers(20, L - 20))
         reads[i, p:] = codes[starts[i] + p + 1:starts[i] + L + 1]
     quals = rng.integers(40, 74, (B, L)).astype(np.uint8)
     kernels.reset_launches()
@@ -391,7 +472,8 @@ def test_aligner_on_card_equals_cpu(card):
             np.testing.assert_array_equal(got[k], v, err_msg=k)
 
 
-def test_paired_aligner_on_card_equals_cpu(card):
+@pytest.mark.parametrize("L", [100, 150])
+def test_paired_aligner_on_card_equals_cpu(card, L):
     """The paired engine on the card (K1, K2 in both forms) against the
     same engine on the CPU, with end 1 of some pairs seedless so the mate
     rescue places it."""
@@ -399,7 +481,7 @@ def test_paired_aligner_on_card_equals_cpu(card):
     from snap_rnaseq_tpu_torch.utils.synth_genome import wgsim_pairs
     codes = hg_like_genome(300_000, seed=4)
     index = build_index(genome_from_codes(codes), seed_len=20)
-    r0, q0, r1, q1, _, _ = wgsim_pairs(codes, 256, seed=2)
+    r0, q0, r1, q1, _, _ = wgsim_pairs(codes, 256, L, seed=2)
     for i in range(0, 256, 8):                     # no exact 20-mer left
         r1[i, 5::17] = (r1[i, 5::17] + 1) % 4
     kernels.reset_launches()

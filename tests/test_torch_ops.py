@@ -242,7 +242,8 @@ def test_lv_f32_quality_and_none():
 
 # ---------------------------------------------------------------- bitpar
 
-@pytest.mark.parametrize("P,packed_off", [(100, 16), (40, 3), (64, 0)])
+@pytest.mark.parametrize("P,packed_off", [(100, 16), (40, 3), (64, 0),
+                                          (150, 16), (250, 5)])
 def test_bitpar_words_matches_jax(P, packed_off):
     rng = np.random.default_rng(P)
     B = 96
@@ -268,13 +269,23 @@ def test_bitpar_words_matches_jax(P, packed_off):
     assert (np.asarray(ref) <= 8).any()
 
 
-@pytest.mark.parametrize("track_pos,free_start,reverse", [
-    (True, True, True), (True, False, False), (False, True, False)])
-def test_bitpar_rescue_forms_match_jax(track_pos, free_start, reverse):
+_FORMS = [(tp, fs, rv) for tp in (False, True) for fs in (False, True)
+          for rv in (False, True)]
+
+
+@pytest.mark.parametrize("track_pos,free_start,reverse,P", [
+    pytest.param(True, True, True, 70, id="True-True-True"),
+    pytest.param(True, False, False, 70, id="True-False-False"),
+    pytest.param(False, True, False, 70, id="False-True-False")] + [
+    # reads past four pattern words, in every flag form
+    pytest.param(*f, P, id="-".join(map(str, f + (P,))))
+    for P in (150, 250) for f in _FORMS])
+def test_bitpar_rescue_forms_match_jax(track_pos, free_start, reverse, P):
     rng = np.random.default_rng(5)
-    B, P, TXT = 32, 70, 90
+    B, TXT = 32, P + 20
+    n_w = max(14, (4 + TXT + 7) // 8 + 1)
     pats = rng.integers(0, 4, (B, P)).astype(np.uint8)
-    words = rng.integers(0, 1 << 32, (B, 14), dtype=np.uint64).astype(
+    words = rng.integers(0, 1 << 32, (B, n_w), dtype=np.uint64).astype(
         np.uint32) & np.uint32(0x33333333)
     t_len = np.full(B, TXT, np.int32)
     kw = dict(P=P, TXT=TXT, packed_off=4, track_pos=track_pos,
@@ -328,6 +339,7 @@ def _split_scan(pat, text, tl, P, track_pos, rows):
 @pytest.mark.parametrize("P,TXT,rows,track_pos", [
     (100, 1084, 4096, True),   # the mate rescue's call: 8 chunks of 136
     (100, 1084, 24, True),     # few rows: 32 chunks of 34 columns
+    (250, 1234, 4096, True),   # P = 250: SCAN_COLUMNS stops at 4 chunks
     (12, 300, 24, True), (12, 300, 24, False)])
 def test_split_scan_equals_full_scan(P, TXT, rows, track_pos, reverse):
     """The free-start scan cut into scan_chunks' chunks, each warmed up
