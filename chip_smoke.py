@@ -53,6 +53,25 @@ failure; nothing is caught.
       from transcript fragments of 200-400 bases at the default -tmh
       1000; RNA `single` once more under SNAP_TPU_LV_LANES=onehot, whose
       SAM must equal the default run's.
+   d. formats: 4b's pairs through `paired` to `-o p.sam.gz` (its
+      decompressed SAM must equal 4b's without @PG), `-so -o p.bam` and
+      `-so -o p.sam` (coordinate order; the BAM's decoded records equal
+      the sorted SAM's, duplicate flags aside, and both hold 4b's
+      records; the .bai exists), 4c's reads through RNA `single -so -o
+      r.bam` (4c's records and count files), and p.sam back in as
+      `paired`'s interleaved input (each pair's two placements as in
+      4b); every output passes the port's validator; K3 must launch in
+      the BAM runs, K1 and K2 in each; each run's rate beside 4b's / 4c's.
+   e. flat: 1024 of 4a's reads through seed -> budget -> expand ->
+      aggregate_phase -> compact_phase -> filtered_score_phase (K4, K1)
+      -> replay_phase (path `flat`, its calls recorded); again with the
+      substitution fast path off (where both scored, LV never above the
+      closed form, below it only off the anchor; the rest within the LV
+      budgets' overflow); 64 of them on
+      the card and on the CPU (equal); then `trace` through the CLI on 16
+      reads (4 with an indel), each result line equal to the engine's at
+      the trace's scoring (every slot scored) and its score to the
+      default engine's, and on a random read (NotFound).
    The launch counters are zeroed just before each run and read just
    after; each kernel of that path must have launched.  Prints the rate,
    the aligned share, the share placed at the true origin (checked), the
@@ -65,9 +84,10 @@ failure; nothing is caught.
    batch; for pairs also the pair-found share and the rescued ends.
 5. stringz: the port's tools/stringz at its defaults (-P 100) and at
    -P 150 on the card; K4 must have launched in each.
-6. Path shapes: during each main path's run (4a, 4b, 4c, 5) every call of
-   a kernel wrapper is counted by its argument shapes, and the first call
-   of each shape is recorded with a copy of its inputs.  Each recorded
+6. Path shapes: during each main path's run (4a, 4b, 4c, 4e's `flat`,
+   5) every call of a kernel wrapper is counted by its argument shapes,
+   and the first call of each shape is recorded with a copy of its
+   inputs.  Each recorded
    call is re-run on those inputs against the plain version (same
    tolerances) and both are timed with CUDA events; the bound is computed
    from the same inputs.  K3's levels per row are printed per path; K3 is
@@ -1263,6 +1283,327 @@ def paired_real_phase(tmp, codes, idx, index_s, n_pairs, batch,
     return res, calls
 
 
+# ---------------------------------------------------------------- phase 4d
+
+FLAT_PATH = ("K4_bitpar_rows", "K1_lv_lanes")
+RESCUE_CORE = ("K1_lv_lanes", "K2_bitpar_packed", "K2_bitpar_rescue")
+BAM_PATH = RESCUE_CORE + ("K3_lv_cigar",)
+
+
+def sam_body(lines):
+    """The record lines of SAM text (bytes), header dropped."""
+    return [l for l in lines if l and not l.startswith(b"@")]
+
+
+def core_fields(line):
+    """A SAM record's first 11 fields, the duplicate flag (0x400) cleared:
+    what a BAM decoder (io/validate.py bam_to_sam_lines) gives back."""
+    f = line.split(b"\t")[:11]
+    f[1] = str(int(f[1]) & ~0x400).encode()
+    return tuple(f)
+
+
+def check_valid(path):
+    """The port's validator (validate_sam, or validate_bam's checks on the
+    BAM decoded once) finds no errors.  Returns the record lines."""
+    from snap_rnaseq_tpu_torch.io import validate
+    if path.endswith(".bam"):
+        lines = list(validate.bam_to_sam_lines(path))
+    else:
+        lines = open(path, "rb").read().splitlines()
+    errors = validate.validate_records(lines)
+    if errors:
+        raise AssertionError(f"{path}: {len(errors)} validation errors, "
+                             f"first {errors[:3]}")
+    return sam_body(lines)
+
+
+def check_sorted(body):
+    """Mapped records in nondecreasing (RNAME, POS) order, the one
+    chromosome's records first."""
+    keys = [(l.split(b"\t")[2], int(l.split(b"\t")[3])) for l in body
+            if not int(l.split(b"\t")[1]) & 4]
+    if keys != sorted(keys):
+        raise AssertionError("sorted output out of coordinate order")
+
+
+def placements(body):
+    """read name -> the sorted (RNAME, POS, reverse strand, CIGAR) of its
+    two records ('*' for an unaligned end)."""
+    out = {}
+    for l in body:
+        f = l.split(b"\t")
+        flag = int(f[1])
+        p = (b"*",) if flag & 4 else (f[2], f[3], flag & 0x10, f[5])
+        out.setdefault(f[0], []).append(p)
+    return {k: sorted(v) for k, v in out.items()}
+
+
+def matched_fastq(tmp, sam):
+    """The pairs of an interleaved SAM as the port's matcher forms them
+    (io/readers.py open_paired_read_supplier), written as two FASTQ files
+    in that end order; returns their paths."""
+    from snap_rnaseq_tpu_torch.io.readers import open_paired_read_supplier
+    paths = [os.path.join(tmp, f"sw_r{e}.fq") for e in (1, 2)]
+    with open(paths[0], "wb") as f0, open(paths[1], "wb") as f1:
+        for a, b in open_paired_read_supplier(sam):
+            for f, r in ((f0, a), (f1, b)):
+                f.write(b"@" + r.rid + b"\n" + r.seq + b"\n+\n" + r.qual
+                        + b"\n")
+    return paths
+
+
+def formats_phase(tmp, idx, paired, rna, batch, device="cuda"):
+    """Phase 4d: the 4b pairs to `-o .sam.gz`, `-so -o .bam` and `-so -o
+    .sam`, 4c's RNA reads to `-so -o .bam`, the sorted SAM back in as
+    `paired`'s interleaved input and, as its reference, the same pairs as
+    FASTQ in the matcher's end order; counters zeroed around each run,
+    whose kernels must all launch.  Each output is held to 4b's or 4c's
+    and passes the validator."""
+    import gzip
+    fq1, fq2 = (os.path.join(tmp, f"p{READ_LEN}_r{e}.fq") for e in (1, 2))
+    ref = sam_body(open(os.path.join(tmp, f"paired{READ_LEN}.sam"),
+                        "rb").read().splitlines())
+    gtf, tidx = os.path.join(tmp, "real.gtf"), os.path.join(tmp, "tidx")
+    out = {k: os.path.join(tmp, k) for k in
+           ("p.sam.gz", "p.bam", "p.sam", "r.bam", "pin.sam", "sw.sam")}
+    res = {}
+
+    def run(name, argv, path, is_pairs=True):
+        perf = os.path.join(tmp, f"{name}.tsv")
+        _, launches, _, wall_s, _ = counted_cli(
+            argv + ["-o", out[name], "-bs", str(batch), "--device", device,
+                    "-pf", perf], path)
+        total, align_s = perf_row(perf)
+        rate = total / (2 if is_pairs else 1) / align_s
+        base = (paired["pairs_per_s"] if is_pairs
+                else rna["rna_single"]["reads_per_s"])
+        res[name] = dict(rate=rate, baseline_rate=base, wall_s=wall_s,
+                         launches=launches)
+        log(f"formats {name}: {rate:.1f} {'pairs' if is_pairs else 'reads'}"
+            f"/s (its plain-SAM run: {base:.1f}), {wall_s:.3f} s")
+
+    run("p.sam.gz", ["paired", idx, fq1, fq2], RESCUE_CORE)
+    run("p.bam", ["paired", idx, fq1, fq2, "-so"], BAM_PATH)
+    run("p.sam", ["paired", idx, fq1, fq2, "-so"], RESCUE_CORE)
+    run("r.bam", ["single", idx, tidx, gtf, os.path.join(tmp, "rna_reads.fq"),
+                  "-so"], SINGLE_PATH, is_pairs=False)
+    run("pin.sam", ["paired", idx, out["p.sam"]], RESCUE_CORE)
+    run("sw.sam", ["paired", idx, *matched_fastq(tmp, out["p.sam"])],
+        RESCUE_CORE)
+
+    gz = gzip.decompress(open(out["p.sam.gz"], "rb").read())
+    plain_gz = os.path.join(tmp, "p_gz.sam")
+    open(plain_gz, "wb").write(gz)
+    drop_pg = lambda lines: [l for l in lines if not l.startswith(b"@PG")]
+    plain = open(os.path.join(tmp, f"paired{READ_LEN}.sam"), "rb").read()
+    if drop_pg(gz.splitlines()) != drop_pg(plain.splitlines()):
+        raise AssertionError("p.sam.gz differs from the plain SAM")
+    check_valid(plain_gz)
+    sorted_sam = check_valid(out["p.sam"])
+    check_sorted(sorted_sam)
+    if sorted(sorted_sam) != sorted(ref):
+        raise AssertionError("-so SAM: not the plain SAM's records")
+    bam = check_valid(out["p.bam"])
+    check_sorted(bam)
+    if sorted(map(core_fields, bam)) != sorted(map(core_fields, sorted_sam)):
+        raise AssertionError("-so BAM: not the sorted SAM's records")
+    if not os.path.exists(out["p.bam"] + ".bai"):
+        raise AssertionError("-so BAM: no .bai")
+    n_dup = sum(int(l.split(b"\t")[1]) & 0x400 > 0 for l in bam)
+
+    rna_ref = sam_body(open(os.path.join(tmp, "rna_single.sam"),
+                            "rb").read().splitlines())
+    if sorted(map(core_fields, check_valid(out["r.bam"]))) != \
+            sorted(map(core_fields, rna_ref)):
+        raise AssertionError("RNA -so BAM: not RNA single's records")
+    run_files = [n[len("rna_single."):] for n in os.listdir(tmp)
+                 if n.startswith("rna_single.")
+                 and not n.endswith((".sam", ".tsv"))]
+    for suffix in run_files:
+        a = open(os.path.join(tmp, "rna_single." + suffix), "rb").read()
+        b = open(os.path.join(tmp, "r." + suffix), "rb").read()
+        if a != b:
+            raise AssertionError(f"RNA -so BAM run: {suffix} differs")
+
+    # SAM input: the matcher pairs mates by name and hands them on as
+    # (arriving, stored), so a pair's ends can trade places, and the
+    # engine is not symmetric in its ends where candidates tie.  The run
+    # must give the records of the same pairs read from FASTQ in that end
+    # order (sw.sam); the pairs whose placements differ from 4b's are
+    # counted
+    pin = check_valid(out["pin.sam"])
+    if sorted(pin) != sorted(sam_body(open(out["sw.sam"], "rb")
+                                      .read().splitlines())):
+        raise AssertionError("SAM input: not the records of the same pairs "
+                             "read from FASTQ")
+    got, want = placements(pin), placements(ref)
+    if set(got) != set(want):
+        raise AssertionError("SAM input: pairs lost or added")
+    n_moved = sum(got[k] != v for k, v in want.items())
+    res.update(sam_input_pairs_placed_unlike_fastq_order=n_moved, duplicates_flagged=n_dup, rna_run_files=len(run_files),
+               pairs=len(want))
+    return res
+
+
+# ---------------------------------------------------------------- phase 4e
+
+def fastq_codes(path, n):
+    """The first n records of a FASTQ: (codes (n, L) u8, names)."""
+    from snap_rnaseq_tpu_torch.utils.tables import encode_bases
+    lines = open(path, "rb").read().splitlines()[:4 * n]
+    names = [lines[i][1:] for i in range(0, len(lines), 4)]
+    return np.stack([encode_bases(lines[i + 1])
+                     for i in range(0, len(lines), 4)]), names
+
+
+def same_tensors(what, got, want):
+    """Two runs' result dicts: integers bit-identical, log-probabilities
+    within TOL."""
+    for k, v in want.items():
+        check = logp_err if v.is_floating_point() else assert_same
+        check(f"{what} {k}", got[k].cpu(), v.cpu())
+
+
+def trace_result(text):
+    """(status, score, mapq) of trace's result line."""
+    f = text.strip().splitlines()[-1].split()
+    return f[1], int(f[f.index("score") + 1]), int(f[f.index("mapq") + 1])
+
+
+def origin(codes, name):
+    """The genome bases a 4a read was cut from, on the read's strand (its
+    name is r<i>_<start>_<rc>)."""
+    _, s, rc = name.decode().split("_")
+    seg = codes[int(s):int(s) + READ_LEN]
+    return (3 - seg[::-1]) if int(rc) else seg
+
+
+def flat_phase(tmp, idx, codes, batch, device="cuda"):
+    """Phase 4e: one batch of 4a's reads through the flat phases (path
+    `flat`, calls recorded; K4 and K1 must launch), again with the
+    substitution fast path off (test_fast_sub.py's relations), 64 of them
+    on the card and on the CPU (equal), then `trace` through the CLI on 16
+    reads and a random one."""
+    import torch
+    from snap_rnaseq_tpu_torch.cli import _load_index_cached
+    from snap_rnaseq_tpu_torch.models.single import (SingleAligner,
+                                                     flat_align_batch)
+    from snap_rnaseq_tpu_torch.ops import kernels as kx
+    from snap_rnaseq_tpu_torch.utils.tables import decode_bases
+    index = _load_index_cached(idx)
+    reads, names = fastq_codes(os.path.join(tmp, f"reads{READ_LEN}.fq"),
+                               batch)
+    r = torch.from_numpy(reads)
+    q = torch.full(reads.shape, ord("I"), dtype=torch.uint8)
+    aligner = SingleAligner(index, device=device)
+    flat_align_batch(aligner, r[:64], q[:64])            # warm
+    sync = torch.cuda.synchronize if device == "cuda" else (lambda: None)
+    sync()
+    with recorded_calls() as calls:
+        kx.reset_launches()
+        t0 = time.time()
+        u, sc, out = flat_align_batch(aligner, r, q)
+        sync()
+        wall_ms = 1e3 * (time.time() - t0)
+        launches = dict(kx.LAUNCHES)
+    missing = [k for k in FLAT_PATH if launches[k] <= 0]
+    if device == "cuda" and missing:
+        raise AssertionError(f"kernels not launched on the flat path: "
+                             f"{missing}")
+
+    os.environ["SNAP_TPU_FAST_SUB"] = "0"
+    try:
+        _, sc0, _ = flat_align_batch(aligner, r, q)
+    finally:
+        del os.environ["SNAP_TPU_FAST_SUB"]
+    # The fast path against LV (test_fast_sub.py's relations, as far as
+    # they hold): a candidate only one run scored is one the other run's
+    # pooled LV budget dropped, so there are no more than its overflow.
+    # Where both scored, LV's score is never above the closed form's (the
+    # anchored substitution path is one of LV's paths); where it is below,
+    # LV's path starts off the anchor (loc_adj moved), which the
+    # prefilter's start-anchored distance cannot see (ROADMAP.md section
+    # 3).  Those rows, the equal-score rows whose start moved, and the
+    # rows whose logp differs (equal-cost indel ties, the JAX engine's
+    # accepted deviation) are counted.
+    ok_on, ok_off = sc["scored_ok"], sc0["scored_ok"]
+    ok = ok_on & ok_off
+    over_on, over_off = int(sc["score_overflow"]), int(sc0["score_overflow"])
+    if int((ok_on & ~ok_off).sum()) > over_off or \
+            int((ok_off & ~ok_on).sum()) > over_on:
+        raise AssertionError("fast path on and off: scored_ok differs "
+                             "beyond the LV budgets' overflow")
+    lower = ok & (sc0["score"] < sc["score"])
+    moved = ok & (sc0["loc_adj"] != sc["loc_adj"])
+    if (ok & (sc0["score"] > sc["score"])).any() or (lower & ~moved).any():
+        raise AssertionError("fast path on and off: LV above the closed "
+                             "form, or below it at the anchor")
+    n_lower, n_moved = int(lower.sum()), int((moved & ~lower).sum())
+    n_logp = int(((sc["logp"] - sc0["logp"]).abs()[ok & ~lower]
+                  > 2e-4).sum())
+    n_fast = int(sc["n_fast"])
+    if n_fast <= 0 or int(sc0["n_fast"]) != 0:
+        raise AssertionError("SNAP_TPU_FAST_SUB did not switch the fast "
+                             "path")
+
+    sub = [flat_align_batch(a, r[:64], q[:64])
+           for a in (aligner, SingleAligner(index, device="cpu"))]
+    for part, got, want in zip(("u", "sc", "out"), *sub):
+        same_tensors(f"flat phases card / CPU, {part}:", got, want)
+
+    # trace on reads with and without an indel (those far from their
+    # origin's bases), the result line held to the engine at the trace's
+    # scoring (every slot scored) and its score to the default engine
+    far = [int((reads[i] != origin(codes, n)).sum()) > 10
+           for i, n in enumerate(names[:200])]
+    pick = ([i for i, f in enumerate(far) if f][:4]
+            + [i for i, f in enumerate(far) if not f][:12])
+    exhaustive = SingleAligner(index, device=device,
+                               score_budget_per_read=0, compact_per_read=0,
+                               overflow_tier=False)
+    sel = reads[pick]
+    ql = np.full(sel.shape, ord("I"), np.uint8)
+    want = exhaustive.align_batch(sel, ql)
+    dflt = aligner.align_batch(sel, ql)
+    n_mapq = 0
+    t0 = time.time()
+    for j, i in enumerate(pick):
+        status, score, mapq = trace_result(run_cli(
+            ["trace", idx, decode_bases(reads[i]).decode(), "--device",
+             device]))
+        exp = {1: "SingleHit", 2: "MultipleHits", 0: "NotFound"}[
+            int(want["result"][j])]
+        if (status, score, mapq) != (exp, int(want["score"][j]),
+                                     int(want["mapq"][j])):
+            raise AssertionError(f"trace of read {i}: {status} {score} "
+                                 f"{mapq}, the engine {exp} "
+                                 f"{int(want['score'][j])} "
+                                 f"{int(want['mapq'][j])}")
+        if score != int(dflt["score"][j]):
+            raise AssertionError(f"trace of read {i}: score {score}, the "
+                                 f"default engine {int(dflt['score'][j])}")
+        n_mapq += mapq != int(dflt["mapq"][j])
+    rand = np.random.default_rng(5).integers(0, 4, READ_LEN, dtype=np.uint8)
+    status, _, _ = trace_result(run_cli(
+        ["trace", idx, decode_bases(rand).decode(), "--device", device]))
+    if status != "NotFound":
+        raise AssertionError(f"trace of a random read: {status}")
+    res = dict(reads=len(names), wall_ms=wall_ms, launches=launches,
+               n_fast=n_fast, n_scored=int(ok_on.sum()),
+               n_scored_fast_off=int(ok_off.sum()), logp_tie_rows=n_logp,
+               lv_below_fast_rows=n_lower, tie_start_moved_rows=n_moved,
+               score_overflow=over_on, score_overflow_fast_off=over_off,
+               compact_overflow=int(out["compact_overflow"]),
+               results=np.bincount(out["result"].cpu().numpy(),
+                                   minlength=3).tolist(),
+               traced=len(pick) + 1,
+               traced_with_indel=sum(far[i] for i in pick),
+               trace_mapq_not_default=n_mapq,
+               trace_s=time.time() - t0)
+    return res, calls
+
+
 # ---------------------------------------------------------------- phase 4c
 
 RNA_GENES = 1300
@@ -1732,6 +2073,14 @@ def main():
                                         BATCH)
         for name, r in rna.items():
             log(f"real size, {name}: " + json.dumps(r))
+        t0 = time.time()
+        formats = formats_phase(tmp, idx, paired, rna, BATCH)
+        log("real size, formats (4d): " + json.dumps(formats))
+        log(f"phase 4d: {time.time() - t0:.1f} s")
+        t0 = time.time()
+        flat, flat_calls = flat_phase(tmp, idx, codes, BATCH)
+        log("real size, flat (4e): " + json.dumps(flat))
+        log(f"phase 4e: {time.time() - t0:.1f} s")
     sz = {}
     for name, argv in (("stringz", []),
                        ("stringz150", ["-P", str(LONG_READ_LEN)])):
@@ -1743,13 +2092,14 @@ def main():
     # phase 6: every kernel call shape of each main path, on its inputs
     by_path = dict(single=single["launches"], paired=paired["launches"],
                    single150=single150["launches"],
-                   paired150=paired150["launches"],
+                   paired150=paired150["launches"], flat=flat["launches"],
                    **{name: v[1] for name, v in sz.items()},
                    **{name: r["launches"] for name, r in rna.items()})
     at_path = {p: check_path_calls(p, c) for p, c in (
         ("single", single_calls), ("paired", paired_calls),
         ("single150", single150_calls), ("paired150", paired150_calls),
-        *((name, v[2]) for name, v in sz.items()), *rna_calls.items())}
+        ("flat", flat_calls), *((name, v[2]) for name, v in sz.items()),
+        *rna_calls.items())}
     k3_warp_sweep(single_calls)
     k5_vs_k1(rna_calls["rna_single_onehot"])
     log(f"total: {time.time() - t_start:.1f} s")

@@ -6,10 +6,17 @@ AlignerOptions.cpp), with the subcommands this port carries:
   index         <ref.fa> <index-dir> [-s seedLen] [-lf loadFactor]
   transcriptome <annotation.gtf> <ref.fa> <index-dir> [-s seedLen]
   single        <genome-dir> [<transcriptome-dir> <annotation>] <input>...
-                -o out.sam [-ct contamination-dir] [--device cuda|cpu]
+                -o out [-so] [-S id] [-ct contamination-dir]
+                [--device cuda|cpu]
   paired        <genome-dir> [<transcriptome-dir> <annotation>] <r1> <r2>
-                [<r1> <r2> ...] -o out.sam [-s minSpacing maxSpacing] [-fs]
-                [-I] [-tmh depth] [-ct contamination-dir] [--device cuda|cpu]
+                [<r1> <r2> ...] -o out [-so] [-S id]
+                [-s minSpacing maxSpacing] [-fs] [-I] [-tmh depth]
+                [-ct contamination-dir] [--device cuda|cpu]
+  trace         <index-dir> <ACGT-read> [<phred33-quals>] [--device cuda|cpu]
+
+Inputs may be FASTQ(.gz), SAM or BAM (`paired` takes one interleaved SAM
+or BAM file); outputs .sam, .sam.gz or .bam, location-sorted with -so
+(sorted BAM gets duplicate flags and a .bai unless -S d / -S i).
 
 With a transcriptome directory and its annotation, `single` and `paired`
 align RNA-seq reads against both indices and reconcile the hits
@@ -22,9 +29,9 @@ reference (AlignerOptions.cpp:94-165); -d and -h accept `n1:s:n2` ranges
 
 The engine runs on `--device`, CUDA by default; without a card that
 raises rather than falling back.  SNAP_TPU_LV_LANES=onehot sends the LV
-scoring to the second LV-lanes kernel (ops/lv.py).  Not yet ported (a
-clear error): the `trace` command, `.bam`, `.gz` and sorted (`-so`)
-output, SAM/BAM input to `paired`, and `--hosts`.
+scoring to the second LV-lanes kernel (ops/lv.py).  `trace` prints one
+read's pass through the flat phases (models/trace.py).  Not yet ported (a
+clear error): `--hosts`.
 
     python -m snap_rnaseq_tpu_torch.cli index ref.fa idx
     python -m snap_rnaseq_tpu_torch.cli transcriptome anno.gtf ref.fa tidx
@@ -32,7 +39,8 @@ output, SAM/BAM input to `paired`, and `--hosts`.
     python -m snap_rnaseq_tpu_torch.cli single idx tidx anno.gtf reads.fq \
         -o rna.sam
     python -m snap_rnaseq_tpu_torch.cli paired idx tidx anno.gtf r1.fq r2.fq \
-        -o rna.sam
+        -o rna.bam -so
+    python -m snap_rnaseq_tpu_torch.cli trace idx ACGT... --device cpu
 """
 from __future__ import annotations
 
@@ -67,12 +75,12 @@ def _add_align_flags(p: argparse.ArgumentParser, paired: bool = False):
     from .constants import PAIRED_DEFAULTS, SINGLE_DEFAULTS
     d = PAIRED_DEFAULTS if paired else SINGLE_DEFAULTS
     p.add_argument("-o", dest="output", required=True,
-                   help="output path (.sam)")
+                   help="output path (.sam, .sam.gz, or .bam)")
     p.add_argument("--device", dest="device", default="cuda",
                    help="torch device the engine runs on (default cuda; "
                         "cpu runs the plain PyTorch versions)")
     p.add_argument("-so", dest="sorted_output", action="store_true",
-                   help="sort output by alignment location (not yet ported)")
+                   help="sort output by alignment location")
     p.add_argument("-d", dest="max_dist", default=str(d["max_dist"]),
                    help="maximum edit distance (or range n1:s:n2)")
     p.add_argument("-n", dest="num_seeds", type=int, default=d["num_seeds"],
@@ -111,7 +119,11 @@ def _add_align_flags(p: argparse.ArgumentParser, paired: bool = False):
     p.add_argument("-pf", dest="perf_file", default=None,
                    help="append a run-speed TSV row to this file")
     p.add_argument("-S", dest="suppress", default="",
-                   help="suppress sorted-BAM extras (accepted)")
+                   help="suppress sorted-BAM extras: i=index, d=duplicate "
+                        "marking (e.g. -S id)")
+    p.add_argument("-sm", dest="sort_memory_gb", type=float, default=0.0,
+                   help="accepted for compatibility; sorting here streams "
+                        "through a fixed-size spill buffer")
     p.add_argument("-bs", dest="batch_size", type=int, default=256,
                    help="device batch size (reads per dispatch)")
     # accepted for compatibility with the reference surface
@@ -233,14 +245,7 @@ def _positional_split(args):
     return pos, rest
 
 
-def _refuse_unported_output(a):
-    lower = a.output.lower()
-    if lower.endswith(".bam"):
-        raise NotPorted("BAM output")
-    if lower.endswith(".gz"):
-        raise NotPorted("gzip SAM output")
-    if a.sorted_output:
-        raise NotPorted("sorted output (-so)")
+def _refuse_unported(a):
     if a.n_hosts > 1:
         raise NotPorted("multi-host alignment (--hosts)")
 
@@ -265,12 +270,13 @@ def cmd_single(argv):
               "[<transcriptome-dir> <annotation>] <input>... -o out.sam",
               file=sys.stderr)
         return 2
-    _refuse_unported_output(a)
+    _refuse_unported(a)
 
     opt = PipelineOptions(batch_size=a.batch_size, use_m=a.use_m,
                           read_group=a.read_group,
                           clipping=_clip_mode(a.clipping),
                           compute_error=a.compute_error,
+                          sorted_output=a.sorted_output,
                           pass_filter=a.pass_filter,
                           misalign_threshold=a.misalign_threshold,
                           min_phred=a.min_phred,
@@ -337,15 +343,14 @@ def cmd_paired(argv):
               "[<transcriptome-dir> <annotation>] <r1> <r2> [...] "
               "-o out.sam", file=sys.stderr)
         return 2
-    _refuse_unported_output(a)
-    if any(f.lower().endswith((".sam", ".bam")) for f in inputs):
-        raise NotPorted("SAM/BAM input to paired")
+    _refuse_unported(a)
     fq1, fq2 = _split_inputs(inputs)
 
     opt = PairedPipelineOptions(
         batch_size=a.batch_size, use_m=a.use_m, read_group=a.read_group,
         clipping=_clip_mode(a.clipping), compute_error=a.compute_error,
         min_spacing=a.spacing[0], max_spacing=a.spacing[1],
+        sorted_output=a.sorted_output,
         pass_filter=a.pass_filter, misalign_threshold=a.misalign_threshold,
         min_phred=a.min_phred, min_percent_above_phred=a.min_percent,
         phred_offset=a.phred_offset, suppress=a.suppress,
@@ -377,10 +382,27 @@ def cmd_paired(argv):
     return 0
 
 
-def _not_ported(name):
-    def handler(argv):
-        raise NotPorted(f"the '{name}' command")
-    return handler
+def cmd_trace(argv):
+    """Per-read trace (the _DumpAlignments analog, BaseAligner.cpp:622-631):
+    snap-rna trace <index-dir> <ACGT-read> [<phred33-quals>]"""
+    p = argparse.ArgumentParser(prog="snap-rna trace")
+    p.add_argument("index_dir")
+    p.add_argument("read", help="read as an ACGT string")
+    p.add_argument("quals", nargs="?", default=None,
+                   help="phred+33 quality string (default all 'I')")
+    p.add_argument("--device", dest="device", default="cuda",
+                   help="torch device the phases run on (default cuda)")
+    a = p.parse_args(argv)
+    import numpy as np
+
+    from .models.single import SingleAligner
+    from .models.trace import trace_read
+    from .utils.tables import encode_bases
+    codes = encode_bases(a.read.strip().upper().encode())
+    quals = np.frombuffer((a.quals or "I" * len(a.read)).encode(), np.uint8)
+    aligner = SingleAligner(_load_index_cached(a.index_dir), device=a.device)
+    print(trace_read(aligner, codes, quals))
+    return 0
 
 
 def _split_runs(argv):
@@ -399,12 +421,13 @@ def _split_runs(argv):
 def main(argv=None):
     argv = list(sys.argv[1:] if argv is None else argv)
     if not argv:
-        print("usage: snap-rna {index|transcriptome|single|paired} ...",
+        print("usage: snap-rna {index|transcriptome|single|paired|trace} "
+              "...",
               file=sys.stderr)
         return 2
     handlers = {"index": cmd_index, "transcriptome": cmd_transcriptome,
                 "single": cmd_single, "paired": cmd_paired,
-                "trace": _not_ported("trace")}
+                "trace": cmd_trace}
     for run in _split_runs(argv):
         if not run:
             continue

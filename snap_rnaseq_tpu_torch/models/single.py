@@ -17,6 +17,11 @@ a batch of reads goes through phases over whole tensors:
   rowwise_replay_phase vectorized replay of the early-exit / score-limit /
                   merge logic; winner pick + MAPQ
 
+The JAX engine's flat back half is here too, for `trace` and the parity
+tests: aggregate_phase -> compact_phase -> filtered_score_phase (K4's
+whole-read prefilter, the substitution closed form, K1 in three distance
+buckets) -> replay_phase over (C,) candidate arrays.
+
 The JAX engine's documented deviations from the reference (its module
 docstring) are reproduced, not fixed.  u32 quantities (locations of
 genomes past 2^31, hash values) ride in int32 tensors (ops/u32.py).
@@ -39,7 +44,7 @@ from ..constants import (DEFAULT_EXTRA_SEARCH_DEPTH, INVALID_GENOME_LOCATION,
 from ..index.hash_index import GenomeIndex, cuckoo_layout_for
 from ..ops import lookup as lk
 from ..ops import u32
-from ..ops.bitpar import bitpar_distance_words
+from ..ops.bitpar import bitpar_distance, bitpar_distance_words
 from ..ops.genome_gather import gather_windows, pack_genome_4bit
 from ..ops.lv import NEG_INF, lv_distance, phred_log_prob_device
 from ..ops.rowscan import seg_broadcast
@@ -74,6 +79,10 @@ class SingleAlignerConfig:
     # LV survivors of the whole-read prefilter per read (tiny tier = 1/4
     # of it per read, the rest pooled); 0 scores every candidate slot
     score_budget_per_read: int = 16
+    # unique candidates kept after aggregation by the flat back half's
+    # live-first compaction (compact_phase), per read pooled; the rowwise
+    # engine does not read it
+    compact_per_read: int = 32
     # True = the paired engine's seed budget (one unit per valid position,
     # IntersectingPairedEndAligner.cpp:266); False = the single-end
     # BaseAligner's (each applied (seed, direction), BaseAligner.cpp:336)
@@ -462,6 +471,348 @@ def stable_partition_indices(mask: torch.Tensor, K: int) -> torch.Tensor:
     return inv[:K]
 
 
+# ----------------------------------------------------------------------
+# flat back half (the trace tool's phases)
+# ----------------------------------------------------------------------
+# The JAX engine's older back half over flat (C,) candidate arrays:
+# aggregate_phase -> compact_phase -> filtered_score_phase -> replay_phase.
+# The engines run the rowwise back half below; the flat phases serve
+# `trace` (models/trace.py) and parity tests.  Their jax.ops.segment_*
+# reductions become the helpers here: min and max as scatter_reduce,
+# whose result does not depend on the order of the scatter; float sums
+# in a fixed order (no atomics), so a card's sums repeat run to run.
+
+def _segment_min(vals: torch.Tensor, seg: torch.Tensor, n: int):
+    """jax.ops.segment_min: an empty segment holds the identity
+    (int32 max, or +inf)."""
+    ident = float("inf") if vals.is_floating_point() else \
+        torch.iinfo(vals.dtype).max
+    out = torch.full((n,), ident, dtype=vals.dtype, device=vals.device)
+    return out.scatter_reduce_(0, seg.long(), vals, reduce="amin")
+
+
+def _segment_max(vals: torch.Tensor, seg: torch.Tensor, n: int):
+    """jax.ops.segment_max: an empty segment holds the identity (-inf, or
+    int32 min)."""
+    ident = float("-inf") if vals.is_floating_point() else \
+        torch.iinfo(vals.dtype).min
+    out = torch.full((n,), ident, dtype=vals.dtype, device=vals.device)
+    return out.scatter_reduce_(0, seg.long(), vals, reduce="amax")
+
+
+def _segment_sum(vals: torch.Tensor, seg: torch.Tensor, n: int):
+    """jax.ops.segment_sum.  Integers add exactly in any order.  Floats are
+    laid out as an (n, longest segment) matrix, each segment's values in
+    index order (a stable sort by segment), and summed along its rows: a
+    fixed order, where an atomic scatter-add's order would change from run
+    to run."""
+    if not vals.is_floating_point():
+        out = torch.zeros((n,), dtype=vals.dtype, device=vals.device)
+        return out.index_add_(0, seg.long(), vals)
+    seg_s, perm = torch.sort(seg.long(), stable=True)
+    counts = torch.bincount(seg_s, minlength=n)
+    starts = _cumsum(counts, 0) - counts.to(I32)
+    col = torch.arange(seg_s.shape[0], device=vals.device) - starts[seg_s]
+    width = max(int(counts.max()), 1)
+    dense = torch.zeros((n, width), dtype=vals.dtype, device=vals.device)
+    dense[seg_s, col] = vals[perm]
+    return dense.sum(dim=1)
+
+
+def _lexsort(keys) -> torch.Tensor:
+    """jnp.lexsort: the LAST key is the primary one; stable sorts applied
+    from the first key to the last."""
+    perm = torch.arange(keys[0].shape[0], device=keys[0].device)
+    for k in keys:
+        _, p = torch.sort(k[perm], stable=True)
+        perm = perm[p]
+    return perm
+
+
+def aggregate_phase(c):
+    """_aggregate_rows flattened to (C,) arrays, with a `read` column."""
+    u2 = _aggregate_rows(c)
+    rows, W = u2["dir"].shape
+    out = {k: v.reshape(rows * W) for k, v in u2.items()}
+    out["read"] = torch.arange(rows, dtype=I32, device=u2["dir"].device)[
+        :, None].expand(rows, W).reshape(rows * W)
+    return out
+
+
+def compact_phase(u, B, cfg):
+    """Live-first stable compaction of the aggregated candidates to
+    B * compact_per_read slots: the live prefix keeps its (read, dir, loc)
+    order, so replay_phase sees the same cluster gaps.  Live candidates
+    past the pooled budget are counted (the reference's candidate-pool
+    cap)."""
+    C = u["read"].shape[0]
+    CB = min(B * cfg.compact_per_read, C)
+    take = stable_partition_indices(u["live"], CB).long()
+    out = {k: v[take] for k, v in u.items()}
+    overflow = (u["live"].sum(dtype=I32) - CB).clamp_min(0)
+    return out, overflow
+
+
+def filtered_score_phase(u, reads, quals, genome_p4, piece_starts, cfg,
+                         seed_len, read_len, genome_size, B,
+                         qlp_both: torch.Tensor | None = None):
+    """Two-stage scoring of flat candidates: whole-read bit-parallel
+    distances for every slot (K4 on a card), the anchored substitution
+    closed form, then LV + backtrace (K1) on the survivors in three
+    distance buckets with pooled budgets.  Exactness, the accepted
+    equal-cost-indel deviation and the tier budgets are the JAX engine's
+    (its filtered_score_phase).  Each bucket's tier is picked on the host
+    from its survivor count; every tier gives the same result, and the
+    survivors past the largest tier are counted in score_overflow."""
+    e_max = cfg.e_max
+    C = u["read"].shape[0]
+    dev = reads.device
+    big = big_locations(genome_size)
+    live = u["live"]
+    loc_c = torch.where(live, u["loc"], 0)
+
+    comp = torch.from_numpy(_COMP_LUT).to(dev)
+    rc_reads = comp[reads.flip(1).long()]
+    read_both = torch.stack([reads, rc_reads], dim=1)
+    ridx, didx = u["read"].long(), u["dir"].long()
+    sel = read_both[ridx, didx]                               # (C, L)
+
+    # one window per candidate serves the prefilter and both LV slices
+    M = cfg.e_max
+    window = gather_windows(genome_p4, loc_c - M, width=read_len + 2 * M,
+                            big=big)
+    want = read_len + e_max
+    t_len = torch.full((C,), want, dtype=I32, device=dev)
+    wdist = bitpar_distance(sel, window[:, M:M + want], t_len, P=read_len)
+
+    E0 = min(3, e_max)
+    E1 = min(7, e_max)
+    score = torch.full((C,), BIG, dtype=I32, device=dev)
+    logp = torch.full((C,), NEG_INF, dtype=torch.float32, device=dev)
+    loc_adj = u["loc"]
+    scored_ok = torch.zeros((C,), dtype=torch.bool, device=dev)
+
+    if qlp_both is None:
+        qlp_both = phred_log_prob_device(
+            torch.stack([quals, quals.flip(1)], dim=1))
+
+    fast = torch.zeros((C,), dtype=torch.bool, device=dev)
+    if os.environ.get("SNAP_TPU_FAST_SUB", "1") != "0":
+        pidx = piece_index_of(piece_starts, loc_c, big=big)
+        next_start = _next_start(piece_starts, pidx, genome_size)
+        crosses = _crosses(loc_c, next_start, genome_size, read_len + M)
+        mm = sel != window[:, M:M + read_len]
+        ham = mm.sum(dim=1, dtype=I32)
+        fast = live & ~crosses & (wdist <= e_max) & (ham == wdist)
+        logp_f = (torch.where(mm, qlp_both[ridx, didx], 0.0).sum(dim=1)
+                  + (read_len - ham).to(torch.float32) * LOG_ONE_MINUS_SNP)
+        score = torch.where(fast, ham, score)
+        logp = torch.where(fast, logp_f, logp)
+        scored_ok = fast
+
+    keep0 = live & ~fast & (wdist <= E0)
+    keep1 = live & ~fast & (wdist > E0) & (wdist <= E1)
+    keep2 = live & ~fast & (wdist > E1) & (wdist <= e_max)
+    per_read = max(cfg.score_budget_per_read, cfg.max_hits_to_get)
+
+    def run_bucket(keep, SB, band, st):
+        chosen = stable_partition_indices(keep, SB).long()
+        u_sub = {k: u[k][chosen] for k in ("read", "dir", "loc", "off")}
+        lv_live = live[chosen] & keep[chosen]
+        u_sub["live"] = lv_live
+        sc_sub = score_phase(u_sub, reads, quals, genome_p4, piece_starts,
+                             cfg, seed_len, read_len, genome_size, band=band,
+                             window=window[chosen], qlp_both=qlp_both)
+        out = []
+        for dst, key in zip(st, ("score", "logp", "loc_adj", "scored_ok")):
+            dst = dst.clone()
+            dst[chosen] = torch.where(lv_live, sc_sub[key], dst[chosen])
+            out.append(dst)
+        return tuple(out)
+
+    def tier(n, tiers):
+        """The smallest tier that holds n survivors, else the last."""
+        return next((t for t in tiers[:-1] if n <= t), tiers[-1])
+
+    # bucket 0: up to three tiers (tiny, small, big)
+    SB_big = min(B * per_read, C)
+    SB_small = min(B * max(2, per_read // 4), SB_big)
+    SB_tiny = min(B, SB_small)
+    n0 = int(keep0.sum())
+    tiers = [SB_big]
+    if SB_small < SB_big:
+        tiers = ([SB_tiny] if SB_tiny < SB_small else []) + [SB_small, SB_big]
+    st = run_bucket(keep0, tier(n0, tiers), E0,
+                    (score, logp, loc_adj, scored_ok))
+    overflow = max(n0 - SB_big, 0)
+
+    # bucket 1 (two tiers) and bucket 2 (one pooled cap); the JAX engine
+    # skips both when e_max <= 7
+    for keep, hi in ((keep1, E1), (keep2, e_max)):
+        if hi <= E0 or (hi == e_max and e_max <= E1):
+            continue
+        SBt = min(max(B // 2, 256), C)
+        nk = int(keep.sum())
+        if hi == E1:
+            SBt_big = min(B * max(2, per_read // 4), C)
+            st = run_bucket(keep, tier(nk, [SBt, SBt_big])
+                            if SBt < SBt_big else SBt_big, hi, st)
+            overflow += max(nk - SBt_big, 0)
+            continue
+        st = run_bucket(keep, SBt, hi, st)
+        overflow += max(nk - SBt, 0)
+
+    score, logp, loc_adj, scored_ok = st
+    return dict(score=score, logp=logp, loc_adj=loc_adj, scored_ok=scored_ok,
+                score_overflow=torch.tensor(overflow, dtype=I32, device=dev),
+                n_bucket2=keep2.sum(dtype=I32), n_fast=fast.sum(dtype=I32))
+
+
+def replay_phase(u, sc, budget, reads, B, S, cfg: SingleAlignerConfig):
+    """Replay of the sequential engine's selection over flat scored
+    candidates (the JAX engine's replay_phase): segment reductions by read,
+    by (read, round) and by merge cluster."""
+    maxK, extra = cfg.max_k, cfg.extra_search_depth
+    C = u["read"].shape[0]
+    dev = reads.device
+    score, logp, loc_adj = sc["score"], sc["logp"], sc["loc_adj"]
+    scored_ok = sc["scored_ok"]
+    u_read, u_dir, u_round, u_order, u_lp = (
+        u["read"], u["dir"], u["round"], u["order"], u["lp"])
+    ridx = u_read.long()
+    f3e12 = torch.tensor(3e12, dtype=torch.float32, device=dev)
+    neg_inf = torch.tensor(NEG_INF, dtype=torch.float32, device=dev)
+    slots = torch.arange(C, dtype=I32, device=dev)
+
+    n_count = (reads == 4).sum(dim=1, dtype=I32)
+
+    # stopping round R*: lowest-possible bound exceeds the evolving limit
+    round_of = u_round.clamp(0, S - 1)
+    best_by_round = _segment_min(torch.where(scored_ok, score, BIG),
+                                 u_read * S + round_of, B * S).reshape(B, S)
+    best_upto = torch.cummin(best_by_round, dim=1).values
+    limit_r = best_upto.clamp_max(maxK) + extra
+    lp_after = budget["lp_after"]
+    stop_r = torch.minimum(lp_after[:, :, 0], lp_after[:, :, 1]) > limit_r
+    r_star = torch.where(stop_r.any(dim=1), first_true(stop_r, 1), S - 1)
+
+    in_play = scored_ok & (u_round <= r_star[ridx])
+    score_f = torch.where(in_play, score, BIG)
+
+    # winner per read by (score asc, logp desc, order asc, index asc)
+    comp = torch.where(score_f < BIG,
+                       score_f.to(torch.float32) * 1e6
+                       - logp.clamp(-1e5, 0), f3e12)
+    m1 = _segment_min(comp, u_read, B)
+    cand1 = comp <= m1[ridx]
+    m2 = _segment_min(torch.where(cand1, u_order, BIG), u_read, B)
+    cand2 = cand1 & (u_order == m2[ridx])
+    winner_slot = _segment_min(torch.where(cand2, slots, BIG), u_read, B)
+    has_best = _segment_min(score_f, u_read, B) < BIG
+    winner_slot = torch.where(has_best, winner_slot, 0)
+    ws = winner_slot.long()
+    best_score = score_f[ws]
+    best_loc = loc_adj[ws]
+    best_dir = u_dir[ws]
+    best_logp = logp[ws]
+
+    final_limit = (best_score.clamp_max(maxK) + extra).clamp_max(cfg.e_max)
+    in_prob = in_play & (score <= final_limit[ridx]) \
+        & (u_lp <= final_limit[ridx])
+
+    gap_new = torch.cat([torch.ones(1, dtype=torch.bool, device=dev),
+                         (u_read[1:] != u_read[:-1])
+                         | (u_dir[1:] != u_dir[:-1])
+                         | (loc_adj[1:] - loc_adj[:-1] > MAX_MERGE_DIST)])
+    clus_id = _cumsum(gap_new, 0) - 1
+    cidx = clus_id.long()
+    clus_key = torch.where(in_prob,
+                           score.to(torch.float32) * 1e6
+                           - logp.clamp(-1e5, 0), f3e12)
+    clus_min = _segment_min(clus_key, clus_id, C)
+    is_clus_best = in_prob & (clus_key <= clus_min[cidx])
+    cum_best = _cumsum(is_clus_best, 0)
+    first_best_rank = _segment_min(torch.where(is_clus_best, cum_best, BIG),
+                                   clus_id, C)
+    is_clus_best = is_clus_best & (cum_best == first_best_rank[cidx])
+
+    clus_logp = torch.where(is_clus_best, logp, neg_inf)
+    read_max = _segment_max(clus_logp, u_read, B).clamp_min(-1e29)
+    psum = _segment_sum(
+        torch.where(is_clus_best, torch.exp(clus_logp - read_max[ridx]),
+                    0.0), u_read, B)
+    log_pall = torch.where(psum > 0, torch.log(psum) + read_max, neg_inf)
+
+    not_best = is_clus_best & (slots != winner_slot[ridx])
+    psum_o = _segment_sum(
+        torch.where(not_best,
+                    torch.exp(torch.where(not_best, logp, neg_inf)
+                              - read_max[ridx]), 0.0), u_read, B)
+    log_pother = torch.where(psum_o > 0, torch.log(psum_o) + read_max,
+                             neg_inf)
+
+    s_ar = torch.arange(S, dtype=I32, device=dev)
+    popular_n = (budget["popular"] & budget["active_pos"][:, :, None]
+                 & (s_ar[None, :, None] <= r_star[:, None, None])
+                 ).sum(dim=(1, 2), dtype=I32)
+
+    mapq = _compute_mapq(log_pall, best_logp, log_pother, best_score,
+                         popular_n)
+
+    applied_any = budget["applied_act"].any(dim=2).any(dim=1)
+    aligned = has_best & (best_score <= maxK)
+    unaligned = torch.where(applied_any, NOT_FOUND, MULTIPLE_HITS)
+    if cfg.stop_on_first:
+        result = torch.where(aligned, SINGLE_HIT, unaligned)
+    else:
+        result = torch.where(
+            aligned,
+            torch.where(mapq >= MAPQ_LIMIT_FOR_SINGLE_HIT, SINGLE_HIT,
+                        MULTIPLE_HITS),
+            unaligned)
+    result = torch.where(n_count > maxK, NOT_FOUND, result).to(I32)
+    ok = aligned & (n_count <= maxK)
+    out = dict(result=result,
+               loc=torch.where(ok, best_loc, -1).to(I32),
+               direction=best_dir,
+               score=torch.where(has_best, best_score, -1).to(I32),
+               mapq=torch.where(ok, mapq, 0).to(I32),
+               log_pbest=best_logp, log_pall=log_pall,
+               popular=popular_n)
+    if cfg.max_hits_to_get > 0:
+        out.update(_multi_hits(u_read, loc_adj, u_dir, score, u_order,
+                               in_play, B, cfg.max_hits_to_get, cfg.e_max))
+    return out
+
+
+def _multi_hits(u_read, loc_adj, u_dir, score, u_order, in_play, B,
+                max_get, e_max):
+    """fillHitsFound analog (BaseAligner.cpp:940-975) over flat candidates:
+    up to max_get hits per read, scores within [firstDist, firstDist+4),
+    in (score, order) order."""
+    dev = score.device
+    score_m = torch.where(in_play, score, BIG)
+    perm = _lexsort((u_order, score_m, u_read))
+    r_, s_, l_, d_ = u_read[perm], score_m[perm], loc_adj[perm], u_dir[perm]
+    first_score = _segment_min(s_, r_, B)
+    okh = (s_ < BIG) & (s_ < first_score[r_.long()] + 4) & (s_ <= e_max)
+    rank = _cumsum(okh, 0) - 1
+    base_rank = _segment_min(torch.where(okh, rank, BIG), r_, B)
+    rr = rank - base_rank[r_.long()]
+    keep = okh & (rr < max_get)
+    # the JAX scatter's mode="drop" on rows past B: masked writes
+    tr, tc = r_[keep].long(), rr[keep].long()
+    mh_loc = torch.full((B, max_get), u32.const(INVALID_GENOME_LOCATION),
+                        dtype=I32, device=dev)
+    mh_dir = torch.zeros((B, max_get), dtype=I32, device=dev)
+    mh_score = torch.full((B, max_get), -1, dtype=I32, device=dev)
+    mh_loc[tr, tc] = l_[keep]
+    mh_dir[tr, tc] = d_[keep]
+    mh_score[tr, tc] = s_[keep]
+    return dict(mh_loc=mh_loc, mh_dir=mh_dir, mh_score=mh_score,
+                mh_n=_segment_sum(keep.to(I32), r_, B))
+
+
 def rowwise_score_phase(u2, reads, quals, genome_p4, piece_starts, cfg,
                         seed_len, read_len, genome_size,
                         qlp_both: torch.Tensor | None = None,
@@ -815,6 +1166,36 @@ def rowwise_back_half(cands, budget, reads, quals, genome_p4, piece_starts,
     out["n_scored"] = sc2["scored_ok"].sum(dtype=I32)
     out["n_bucket2"] = sc2["n_bucket2"]
     return u2, sc2, out
+
+
+def flat_align_batch(aligner, reads: torch.Tensor, quals: torch.Tensor):
+    """One batch through the flat phases on the aligner's device: seed ->
+    budget -> expand -> aggregate_phase -> compact_phase ->
+    filtered_score_phase -> replay_phase, composed as the JAX package's
+    tests/test_fast_sub.py composes them.  Returns (u, sc, out): the
+    compacted candidates, their scores, and the replay's results with
+    `compact_overflow` added."""
+    dev = aligner.device
+    B, L = reads.shape
+    reads, quals = reads.to(dev), quals.to(dev)
+    positions, wraps = aligner.schedule_for(L)
+    cfg = aligner.cfg.resolve_for_read_len(L)
+    st = aligner.state
+    seed_len = aligner.index.seed_len
+    as_t = lambda a: torch.from_numpy(np.asarray(a, np.int32)).to(dev)
+    seeds = seed_phase(reads, tuple(int(x) for x in positions), seed_len,
+                       st["overflow"], aligner.genome_size, st)
+    counts = torch.where(seeds["found"][:, :, None], seeds["counts"], 0)
+    budget = budget_phase(seeds["valid"], counts, as_t(wraps), cfg)
+    cands = expand_phase(seeds, budget, as_t(positions), st["overflow"],
+                         cfg, seed_len, L, cfg.cand_per_read)
+    u, overflow = compact_phase(aggregate_phase(cands), B, cfg)
+    sc = filtered_score_phase(u, reads, quals, st["genome_p4"],
+                              st["piece_starts"], cfg, seed_len, L,
+                              aligner.genome_size, B)
+    out = replay_phase(u, sc, budget, reads, B, len(positions), cfg)
+    out["compact_overflow"] = overflow
+    return u, sc, out
 
 
 # ----------------------------------------------------------------------

@@ -289,14 +289,13 @@ class RnaPairedEndPipeline(_RnaBase):
         # reference's depth: maxHitsToGet=1000 (PairedAligner.cpp:584-614).
         # The candidate budget scales with the requested depth, so paralog
         # families with hundreds of near-identical transcripts keep every
-        # hit.  The JAX package also sets compact_per_read here; only its
-        # flat back half (models/single.py compact_phase) reads that, and
-        # the port's engine runs the rowwise back half alone, so the
-        # override is dropped.
+        # hit.  compact_per_read is set as the JAX package sets it; only
+        # the flat back half (models/single.py compact_phase) reads it.
         t_over = dict(aligner_overrides)
         t_over.pop("max_hits_to_get", None)
         mh = transcriptome_multi_hits
         t_over.setdefault("cand_per_read", max(128, 2 * mh))
+        t_over.setdefault("compact_per_read", max(32, mh))
         self.t_aligner = SingleAligner(
             self.transcriptome_index, device=device,
             max_hits_to_get=mh, **t_over)

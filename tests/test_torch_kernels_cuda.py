@@ -496,3 +496,47 @@ def test_paired_aligner_on_card_equals_cpu(card, L):
         else:
             np.testing.assert_array_equal(got[k], v, err_msg=k)
     assert int(want["n_rescued1"]) > 0
+
+
+def test_flat_phases_on_card_equal_cpu(card):
+    """The flat back half (K4's whole-read prefilter, K1 in the distance
+    buckets) on the card against the same phases on the CPU, fast path on
+    and off; the segment sums keep a fixed order, so MAPQ matches too."""
+    import os
+    from snap_rnaseq_tpu_torch.models.single import flat_align_batch
+    codes = hg_like_genome(300_000, seed=6)
+    index = build_index(genome_from_codes(codes), seed_len=20)
+    rng = np.random.default_rng(5)
+    B, L = 256, 100
+    starts = rng.integers(0, codes.size - L - 4, B)
+    reads = codes[starts[:, None] + np.arange(L)].copy()
+    sub = rng.random((B, L)) < 0.02
+    reads[sub] = (reads[sub] + 1) % 4
+    for i in range(0, B, 5):                       # indel reads
+        p = int(rng.integers(20, L - 20))
+        reads[i, p:] = codes[starts[i] + p + 1:starts[i] + L + 1]
+    quals = rng.integers(40, 74, (B, L)).astype(np.uint8)
+    r, q = torch.from_numpy(reads), torch.from_numpy(quals)
+    for fast in ("1", "0"):
+        os.environ["SNAP_TPU_FAST_SUB"] = fast
+        try:
+            kernels.reset_launches()
+            u_g, sc_g, out_g = flat_align_batch(
+                SingleAligner(index, device=card, max_hits_to_get=4), r, q)
+            assert kernels.LAUNCHES["K4_bitpar_rows"] == 1
+            assert kernels.LAUNCHES["K1_lv_lanes"] > 0
+            u_c, sc_c, out_c = flat_align_batch(
+                SingleAligner(index, device="cpu", max_hits_to_get=4), r, q)
+        finally:
+            os.environ.pop("SNAP_TPU_FAST_SUB")
+        for got, want in ((u_g, u_c), (sc_g, sc_c), (out_g, out_c)):
+            for k, v in want.items():
+                g = got[k].cpu()
+                if v.dtype == torch.float32:
+                    np.testing.assert_allclose(g.numpy(), v.numpy(),
+                                               rtol=1e-5, atol=1e-5,
+                                               err_msg=k)
+                else:
+                    np.testing.assert_array_equal(g.numpy(), v.numpy(),
+                                                  err_msg=k)
+        assert (int(sc_c["n_fast"]) > 0) == (fast == "1")

@@ -231,6 +231,8 @@ _BLOCKED_RUN = r"""
 import sys
 sys.modules["jax"] = None
 sys.modules["snap_rnaseq_tpu"] = None
+import torch
+torch.set_num_threads(1)   # beside the other test processes' threads
 from snap_rnaseq_tpu_torch.cli import main
 fa, gtf, reads, gidx, tidx, out = sys.argv[1:7]
 assert main(["index", fa, gidx]) == 0

@@ -94,10 +94,15 @@ _BLOCKED_RUN = r"""
 import sys
 sys.modules["jax"] = None
 sys.modules["snap_rnaseq_tpu"] = None
+import torch
+torch.set_num_threads(1)   # beside the other test processes' threads
 from snap_rnaseq_tpu_torch.cli import main
 fa, fq, idx, out = sys.argv[1:5]
 assert main(["index", fa, idx]) == 0
 assert main(["single", idx, fq, "-o", out, "--device", "cpu"]) == 0
+assert main(["single", idx, fq, "-so", "-o", out + ".bam", "--device",
+             "cpu"]) == 0
+assert main(["trace", idx, "ACGT" * 25, "--device", "cpu"]) == 0
 assert not [m for m in sys.modules
             if m.split(".")[0] in ("jax", "jaxlib", "snap_rnaseq_tpu")
             and sys.modules[m] is not None]
@@ -113,6 +118,8 @@ def test_port_runs_without_jax(golden):
                        capture_output=True, text=True, timeout=300)
     assert r.returncode == 0, r.stderr[-2000:]
     assert _sam_body(out) == open(test_golden.GOLDEN).read()
+    assert os.path.exists(out + ".bam.bai")
+    assert "result: " in r.stdout
 
 
 def test_cuda_without_card_raises(golden, monkeypatch):
@@ -123,14 +130,14 @@ def test_cuda_without_card_raises(golden, monkeypatch):
     with pytest.raises(RuntimeError, match="cuda"):
         port_cli(["single", golden["idx"], golden["fq"], "-o",
                   os.path.join(golden["tmp"], "never.sam")])
+    with pytest.raises(RuntimeError, match="cuda"):
+        port_cli(["trace", golden["idx"], "ACGT" * 25])
 
 
 def test_not_ported_forms_raise(golden):
-    for argv in (["single", golden["idx"], golden["fq"], "-o", "x.bam"],
-                 ["single", golden["idx"], golden["fq"], "-o", "x.sam.gz"],
-                 ["single", golden["idx"], golden["fq"], "-o", "x.sam",
-                  "-so"],
-                 ["paired", golden["idx"], golden["fq"], golden["fq"], "-o",
-                  "x.bam"]):
+    for argv in (["single", golden["idx"], golden["fq"], "-o", "x.sam",
+                  "--hosts", "2"],
+                 ["single", golden["idx"], golden["fq"], "-so", "-o",
+                  "x.bam", "--hosts", "4"]):
         with pytest.raises(SystemExit, match="not yet ported"):
             port_cli(argv)
