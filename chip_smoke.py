@@ -72,6 +72,27 @@ failure; nothing is caught.
       reads (4 with an indel), each result line equal to the engine's at
       the trace's scoring (every slot scored) and its score to the
       default engine's, and on a random read (NotFound).
+   f. --hosts: 4b's pairs through parallel/multihost.py run_host in this
+      process (N = 1, the workers' per-read route), `paired --hosts 2`
+      and `--hosts 4`, 4a's reads through `single --hosts 2`, and `paired
+      --hosts 2 -so`, the workers sharing the card (gloo for the stats):
+      each merged body equal to the one-process body (if batch cuts
+      change records, to a one-process run over the same cuts, with each
+      batch's score_overflow printed), the merged stats to one process's,
+      the sorted merge in coordinate order with 4d's -so records; every
+      worker on the card, K1, K2 and K3 launched in each (its report
+      line), the `multihost:` dict with the JAX package's keys; prints
+      the launcher's wall s, each host's local_wall_s and peak device
+      memory, the rates beside 4a's / 4b's and os.cpu_count().
+   g. the probe-chain lookup: DNA single, DNA paired and RNA single on 4
+      x 1024 of their reads under SNAP_TPU_LOOKUP=probe (paths
+      single_probe, paired_probe, rna_single_probe) and under the cuckoo
+      lookup, the SAMs identical but for @PG; seed_phase alone under each
+      lookup (wall and device-busy ms per batch), the longest probe chain
+      and the stragglers per batch, peak memory.
+   h. tools/distance_hist.py on 4a's SAM on the card (path
+      distance_hist: K1 at e_max 31 without qualities) and on the CPU,
+      the histograms identical.
    The launch counters are zeroed just before each run and read just
    after; each kernel of that path must have launched.  Prints the rate,
    the aligned share, the share placed at the true origin (checked), the
@@ -85,7 +106,7 @@ failure; nothing is caught.
 5. stringz: the port's tools/stringz at its defaults (-P 100) and at
    -P 150 on the card; K4 must have launched in each.
 6. Path shapes: during each main path's run (4a, 4b, 4c, 4e's `flat`,
-   5) every call of a kernel wrapper is counted by its argument shapes,
+   4g's probe runs, 4h's `distance_hist`, 5) every call of a kernel wrapper is counted by its argument shapes,
    and the first call of each shape is recorded with a copy of its
    inputs.  Each recorded
    call is re-run on those inputs against the plain version (same
@@ -1147,28 +1168,37 @@ def real_index(tmp, n_bases):
     return codes, idx, index_s
 
 
-def counted_cli(argv, path):
-    """One CLI run on the card with the launch counters zeroed just before
-    and read just after; raises if a kernel of `path` did not launch.
-    The kernel calls of the run are recorded (recorded_calls).  Returns
-    (stdout, launches, calls, wall s, peak device bytes)."""
+def counted_run(fn, path, what, device="cuda"):
+    """fn() on the card with the launch counters zeroed just before and
+    read just after; raises if a kernel of `path` did not launch.  The
+    kernel calls of the run are recorded (recorded_calls).  Returns
+    (fn's result, launches, calls, wall s, peak device bytes)."""
     import torch
     from snap_rnaseq_tpu_torch.ops import kernels as kx
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
+    cuda = device == "cuda"
+    if cuda:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
     with recorded_calls() as calls:
         kx.reset_launches()                   # zero just before the run
         t0 = time.time()
-        stdout = run_cli(argv)
-        torch.cuda.synchronize()
+        result = fn()
+        if cuda:
+            torch.cuda.synchronize()
         wall_s = time.time() - t0
         launches = dict(kx.LAUNCHES)          # read just after
     missing = [k for k in path if launches[k] <= 0]
-    if missing:
-        raise AssertionError(f"kernels not launched on the {argv[0]} path: "
+    if cuda and missing:
+        raise AssertionError(f"kernels not launched on the {what} path: "
                              f"{missing}")
-    return (stdout, launches, calls, wall_s,
-            torch.cuda.max_memory_allocated())
+    return (result, launches, calls, wall_s,
+            torch.cuda.max_memory_allocated() if cuda else None)
+
+
+def counted_cli(argv, path, device="cuda"):
+    """One CLI run through counted_run; returns its stdout in place of
+    fn's result."""
+    return counted_run(lambda: run_cli(argv), path, argv[0], device)
 
 
 def perf_row(perf):
@@ -1601,6 +1631,344 @@ def flat_phase(tmp, idx, codes, batch, device="cuda"):
                traced_with_indel=sum(far[i] for i in pick),
                trace_mapq_not_default=n_mapq,
                trace_s=time.time() - t0)
+    return res, calls
+
+
+# ---------------------------------------------------------------- phase 4f
+
+# every worker's batches launch K1 and K2; K3 (indel CIGARs) launches in
+# a few of 4b's batches only (4 of 16), so it is required of the run
+HOSTS_WORKER_PATH = ("K1_lv_lanes", "K2_bitpar_packed")
+HOSTS_PATH = HOSTS_WORKER_PATH + ("K3_lv_cigar",)
+# the JAX package's keys of the `multihost:` dict
+MERGED_KEYS = {"total_reads", "useful_reads", "single_hits", "multi_hits",
+               "not_found", "aligned_as_pairs", "lv_calls", "local_wall_s",
+               "host_id", "n_hosts"}
+
+
+def worker_lines(text):
+    """The `multihost worker:` JSON lines of a --hosts run, by host id."""
+    rows = [json.loads(l.split(":", 1)[1]) for l in text.splitlines()
+            if l.startswith("multihost worker:")]
+    return sorted(rows, key=lambda w: w["host_id"])
+
+
+def hosts_cli(argv, n_hosts, device="cuda"):
+    """`argv --hosts n_hosts` through the CLI: (the merged `multihost:`
+    dict, the workers' lines, the launcher's wall s).  Every worker must
+    have run on `device` and, on a card, launched K1 and K2, and the
+    workers together K3."""
+    import ast
+    err = io.StringIO()
+    t0 = time.time()
+    with contextlib.redirect_stderr(err):
+        stdout = run_cli(argv + ["--hosts", str(n_hosts), "--device",
+                                 device])
+    wall_s = time.time() - t0
+    line = next(l for l in stdout.splitlines() if l.startswith("multihost:"))
+    merged = ast.literal_eval(line.split(":", 1)[1].strip())
+    if set(merged) != MERGED_KEYS:
+        raise AssertionError(f"multihost dict keys {sorted(merged)}")
+    workers = worker_lines(err.getvalue())
+    if [w["host_id"] for w in workers] != list(range(n_hosts)):
+        raise AssertionError(f"{len(workers)} worker lines for {n_hosts} "
+                             "hosts")
+    for w in workers:
+        missing = [k for k in HOSTS_WORKER_PATH if w["launches"][k] <= 0]
+        if not w["device"].startswith(device) or (device == "cuda"
+                                                  and missing):
+            raise AssertionError(f"worker {w['host_id']} on {w['device']}, "
+                                 f"kernels not launched: {missing}")
+    missing = [k for k in HOSTS_PATH
+               if sum(w["launches"][k] for w in workers) <= 0]
+    if device == "cuda" and missing:
+        raise AssertionError(f"kernels not launched by any worker: "
+                             f"{missing}")
+    return merged, workers, wall_s
+
+
+def same_cuts(idx, inputs, n_hosts, batch, paired, device="cuda"):
+    """The hosts' ranges aligned one after another in this process, each
+    batch's score_overflow recorded: the one-process run over the same
+    batch cuts as an n_hosts run.  Returns (SAM body, overflow per
+    batch)."""
+    from snap_rnaseq_tpu_torch.cli import _load_index_cached
+    from snap_rnaseq_tpu_torch.io import range_split as rs
+    from snap_rnaseq_tpu_torch.models.paired_pipeline import (
+        PairedEndPipeline, PairedPipelineOptions)
+    from snap_rnaseq_tpu_torch.models.pipeline import (PipelineOptions,
+                                                       SingleEndPipeline)
+    index = _load_index_cached(idx)
+    pipe = (PairedEndPipeline(index, options=PairedPipelineOptions(
+                batch_size=batch), device=device) if paired else
+            SingleEndPipeline(index, options=PipelineOptions(
+                batch_size=batch), device=device))
+    overflow, real = [], pipe.aligner.align_batch_device
+
+    def spy(*a):
+        out = real(*a)
+        overflow.append(int(out["score_overflow"]))
+        return out
+    pipe.aligner.align_batch_device = spy
+    body = []
+    if paired:
+        ranges = rs.split_paired_fastq_ranges(*inputs, n_hosts)
+    else:
+        ranges = rs.split_fastq_ranges(inputs, n_hosts)
+    for k, r in enumerate(ranges):
+        out = f"{idx}.cuts{k}.sam"
+        if paired:
+            pipe.run(rs.read_paired_fastq_range(*inputs, *r), None, out)
+        else:
+            pipe.run(rs.read_fastq_range(inputs, *r), out)
+        body += sam_body(open(out, "rb").read().splitlines())
+    return body, overflow
+
+
+def hosts_phase(tmp, idx, single, paired, batch, device="cuda"):
+    """Phase 4f: 4b's pairs through `paired --hosts 1/2/4` and 4a's reads
+    through `single --hosts 2`, each merged body held to the one-process
+    body (or, if batch cuts change it, to a one-process run over the same
+    cuts, the difference counted), the merged stats to the one-process
+    stats; `paired --hosts 2 -so` held to 4d's sorted SAM.  --hosts 1 runs
+    parallel/multihost.py run_host in this process (the CLI takes --hosts
+    1 as a plain run): the workers' per-read route for N = 1."""
+    import torch
+    from snap_rnaseq_tpu_torch.parallel import multihost as mh
+    fq = os.path.join(tmp, f"reads{READ_LEN}.fq")
+    fq1, fq2 = (os.path.join(tmp, f"p{READ_LEN}_r{e}.fq") for e in (1, 2))
+    body_of = lambda p: sam_body(open(p, "rb").read().splitlines())
+    ref = {"paired": body_of(os.path.join(tmp, f"paired{READ_LEN}.sam")),
+           "single": body_of(os.path.join(tmp, f"out{READ_LEN}.sam"))}
+    res = dict(cpu_count=os.cpu_count(), runs={})
+
+    def check_body(name, got, kind, n_hosts, inputs):
+        if got == ref[kind]:
+            return 0
+        cuts, overflow = same_cuts(idx, inputs, n_hosts, batch,
+                                   kind == "paired", device)
+        n_diff = sum(a != b for a, b in zip(got, ref[kind])) + abs(
+            len(got) - len(ref[kind]))
+        log(f"hosts {name}: {n_diff} records differ from the one-process "
+            f"run; score_overflow per batch over the same cuts: {overflow}")
+        if got != cuts:
+            raise AssertionError(f"hosts {name}: the merged SAM differs "
+                                 "from one process over the same cuts")
+        return n_diff
+
+    # N = 1: run_host in this process, the workers' route
+    out = os.path.join(tmp, "h1.sam")
+    err = io.StringIO()
+    t0 = time.time()
+    with contextlib.redirect_stderr(err):
+        one = mh.run_host(idx, (fq1, fq2), out, host_id=0, n_hosts=1,
+                          paired=True, batch_size=batch, device=device)
+    wall = time.time() - t0
+    w1 = worker_lines(err.getvalue())
+    n_pairs = one["total_reads"] // 2
+    res["runs"]["paired_hosts1"] = dict(
+        wall_s=wall, local_wall_s=[w["local_wall_s"] for w in w1],
+        pairs_per_s_wall=n_pairs / wall,
+        pairs_per_s_local=n_pairs / one["local_wall_s"],
+        peak_device_bytes=[w["peak_device_bytes"] for w in w1],
+        body_records_unlike_one_process=check_body(
+            "paired_hosts1", body_of(out), "paired", 1, (fq1, fq2)))
+    if one["total_reads"] != 2 * paired["pairs"]:
+        raise AssertionError("--hosts 1: total reads unlike 4b's")
+
+    for name, kind, n_hosts, argv in (
+            ("paired_hosts2", "paired", 2, ["paired", idx, fq1, fq2]),
+            ("paired_hosts4", "paired", 4, ["paired", idx, fq1, fq2]),
+            ("single_hosts2", "single", 2, ["single", idx, fq]),
+            ("paired_hosts2_so", "paired", 2, ["paired", idx, fq1, fq2,
+                                               "-so"])):
+        out = os.path.join(tmp, f"{name}.sam")
+        merged, workers, wall = hosts_cli(
+            argv + ["-o", out, "-bs", str(batch)], n_hosts, device)
+        got = body_of(out)
+        n = merged["total_reads"] // (2 if kind == "paired" else 1)
+        if kind == "single":
+            if merged["total_reads"] != single["reads"]:
+                raise AssertionError(f"{name}: total reads unlike 4a's")
+        elif (merged["total_reads"], merged["aligned_as_pairs"]) != (
+                one["total_reads"], one["aligned_as_pairs"]):
+            raise AssertionError(f"{name}: merged stats unlike one "
+                                 "process's")
+        if name.endswith("_so"):
+            check_sorted(got)
+            want = body_of(os.path.join(tmp, "p.sam"))     # 4d's -so SAM
+            if sorted(got) != sorted(want):
+                raise AssertionError(f"{name}: not the records of the "
+                                     "one-process -so SAM")
+            n_diff = 0
+        else:
+            n_diff = check_body(name, got, kind, n_hosts,
+                                (fq1, fq2) if kind == "paired" else fq)
+        unit = "pairs" if kind == "paired" else "reads"
+        res["runs"][name] = {
+            "wall_s": wall, f"{unit}_per_s_wall": n / wall,
+            f"{unit}_per_s_local": n / max(w["local_wall_s"]
+                                           for w in workers),
+            "local_wall_s": [w["local_wall_s"] for w in workers],
+            "peak_device_bytes": [w["peak_device_bytes"] for w in workers],
+            "launches": [w["launches"] for w in workers],
+            "score_overflow": [w["engine_counters"].get("score_overflow")
+                               for w in workers],
+            "body_records_unlike_one_process": n_diff}
+        log(f"hosts {name}: launcher {wall:.3f} s, {n / wall:.1f} {unit}/s "
+            f"(4a/4b: {single['reads_per_s'] if kind == 'single' else paired['pairs_per_s']:.1f}); "
+            f"local_wall_s {res['runs'][name]['local_wall_s']}")
+    if device == "cuda":
+        torch.cuda.synchronize()
+    return res
+
+
+# ---------------------------------------------------------------- phase 4g
+
+@contextlib.contextmanager
+def seed_lookup(mode):
+    """SNAP_TPU_LOOKUP set to `mode` for the aligners built inside."""
+    old = os.environ.get("SNAP_TPU_LOOKUP")
+    os.environ["SNAP_TPU_LOOKUP"] = mode
+    try:
+        yield
+    finally:
+        if old is None:
+            del os.environ["SNAP_TPU_LOOKUP"]
+        else:
+            os.environ["SNAP_TPU_LOOKUP"] = old
+
+
+def head_fastq(src, dst, n):
+    with open(src, "rb") as f:
+        lines = f.read().splitlines(keepends=True)[:4 * n]
+    open(dst, "wb").writelines(lines)
+    return dst
+
+
+def longest_chain(aligner, reads):
+    """The probe-chain lookup of one batch's seeds as one straggler
+    block: (probes of its longest chain, lanes left after the unrolled
+    rounds).  The gathers are counted; one block makes their number the
+    longest chain's probes (results do not depend on the block size)."""
+    from snap_rnaseq_tpu_torch.ops import lookup as lk
+    st = aligner.state
+    positions, _ = aligner.schedule_for(reads.shape[1])
+    packed = lk.pack_seeds(reads, positions, aligner.index.seed_len)
+    sizes, real = [], lk._probe
+
+    def counted(ht, base, idx, key):
+        sizes.append(idx.numel())
+        return real(ht, base, idx, key)
+    lk._probe = counted
+    try:
+        lk.lookup_seeds(packed, st["ht_entries"], st["shard_start"],
+                        st["shard_size"], rem=packed["valid"].numel())
+    finally:
+        lk._probe = real
+    return len(sizes), (sizes[1 + lk.UNROLLED]
+                        if len(sizes) > 1 + lk.UNROLLED else 0)
+
+
+def probe_phase(tmp, idx, batch, n_batches=4, device="cuda"):
+    """Phase 4g: DNA single, DNA paired and RNA single on n_batches x
+    batch reads under SNAP_TPU_LOOKUP=probe (paths single_probe,
+    paired_probe, rna_single_probe; calls recorded) and under the default
+    cuckoo lookup: the SAMs must be identical (@PG aside, which names the
+    output).  Then seed_phase alone under each lookup on 4a's reads (wall
+    and device ms per batch), the longest probe chain, peak memory."""
+    import torch
+    from snap_rnaseq_tpu_torch.cli import _load_index_cached
+    from snap_rnaseq_tpu_torch.models.single import SingleAligner, seed_phase
+    n = n_batches * batch
+    fq = head_fastq(os.path.join(tmp, f"reads{READ_LEN}.fq"),
+                    os.path.join(tmp, "g_single.fq"), n)
+    fq1, fq2 = (head_fastq(os.path.join(tmp, f"p{READ_LEN}_r{e}.fq"),
+                           os.path.join(tmp, f"g_r{e}.fq"), n)
+                for e in (1, 2))
+    rna_fq = head_fastq(os.path.join(tmp, "rna_reads.fq"),
+                        os.path.join(tmp, "g_rna.fq"), n)
+    gtf, tidx = os.path.join(tmp, "real.gtf"), os.path.join(tmp, "tidx")
+    res, calls = {}, {}
+    for name, argv, path in (
+            ("single_probe", ["single", idx, fq], SINGLE_PATH),
+            # 4 of 4b's 16 batches launch K3: these 4 may hold none
+            ("paired_probe", ["paired", idx, fq1, fq2], RESCUE_CORE),
+            ("rna_single_probe", ["single", idx, tidx, gtf, rna_fq],
+             SINGLE_PATH)):
+        sams, row = {}, {}
+        for mode in ("cuckoo", "probe"):
+            out = os.path.join(tmp, f"{name}_{mode}.sam")
+            with seed_lookup(mode):
+                _, launches, c, wall_s, peak = counted_cli(
+                    argv + ["-o", out, "-bs", str(batch), "--device",
+                            device], path, device)
+            if mode == "probe":
+                calls[name] = c
+                row["launches"] = launches
+            row[f"{mode}_wall_s"] = wall_s
+            row[f"{mode}_peak_device_bytes"] = peak
+            sams[mode] = [l for l in open(out, "rb").read().splitlines()
+                          if not l.startswith(b"@PG")]
+        if sams["probe"] != sams["cuckoo"]:
+            raise AssertionError(f"{name}: the SAM under the probe lookup "
+                                 "differs from the cuckoo lookup's")
+        row["records"] = len(sam_body(sams["probe"]))
+        res[name] = row
+        log(f"probe {name}: {json.dumps(row)}")
+
+    # seed_phase alone: the engine's first phase on 4a's reads
+    index = _load_index_cached(idx)
+    reads, _ = fastq_codes(os.path.join(tmp, f"reads{READ_LEN}.fq"),
+                           6 * batch)
+    batches = [torch.from_numpy(reads[i:i + batch]).to(device)
+               for i in range(0, 6 * batch, batch)]
+    for mode in ("cuckoo", "probe"):
+        with seed_lookup(mode):
+            al = SingleAligner(index, device=device)
+        positions, _ = al.schedule_for(READ_LEN)
+        st = al.state
+        step = lambda b: seed_phase(b, tuple(positions), index.seed_len,
+                                    st["overflow"], al.genome_size, st)
+        if device == "cuda":
+            e = engine_phase(step, batches, batch)
+            res[f"seed_phase_{mode}"] = dict(
+                wall_ms_per_batch=e["wall_ms_per_batch"],
+                device_busy_ms_per_batch=e["device_busy_ms_per_batch"],
+                device_ops_per_batch=e["device_ops_per_batch"])
+        if mode == "probe":
+            chains = [longest_chain(al, b) for b in batches]
+            res["longest_probe_chain"] = max(c[0] for c in chains)
+            res["stragglers_per_batch"] = [c[1] for c in chains]
+        del al, st
+    log("probe seed_phase: " + json.dumps(
+        {k: v for k, v in res.items() if k not in calls}))
+    return res, calls
+
+
+# ---------------------------------------------------------------- phase 4h
+
+DIST_HIST_PATH = ("K1_lv_lanes",)
+
+
+def distance_hist_phase(tmp, idx, device="cuda"):
+    """Phase 4h: tools/distance_hist.py on 4a's SAM on the card (path
+    distance_hist: K1 at e_max 31 without qualities, calls recorded) and
+    on the CPU; the histograms must be identical."""
+    from snap_rnaseq_tpu_torch.tools.distance_hist import distance_hist
+    sam = os.path.join(tmp, f"out{READ_LEN}.sam")
+    hist, launches, calls, wall_s, _ = counted_run(
+        lambda: distance_hist(idx, sam, device=device), DIST_HIST_PATH,
+        "distance_hist", device)
+    t0 = time.time()
+    cpu = distance_hist(idx, sam, device="cpu")
+    cpu_s = time.time() - t0
+    if not np.array_equal(hist, cpu):
+        raise AssertionError("distance_hist: the card's histogram differs "
+                             "from the CPU's")
+    res = dict(records=int(hist.sum()), hist=hist.tolist(), wall_s=wall_s,
+               cpu_s=cpu_s, launches=launches)
+    log(f"distance_hist: {json.dumps(res)}")
     return res, calls
 
 
@@ -2081,6 +2449,17 @@ def main():
         flat, flat_calls = flat_phase(tmp, idx, codes, BATCH)
         log("real size, flat (4e): " + json.dumps(flat))
         log(f"phase 4e: {time.time() - t0:.1f} s")
+        t0 = time.time()
+        hosts = hosts_phase(tmp, idx, single, paired, BATCH)
+        log("real size, hosts (4f): " + json.dumps(hosts))
+        log(f"phase 4f: {time.time() - t0:.1f} s")
+        t0 = time.time()
+        probe, probe_calls = probe_phase(tmp, idx, BATCH)
+        log("real size, probe (4g): " + json.dumps(probe))
+        log(f"phase 4g: {time.time() - t0:.1f} s")
+        t0 = time.time()
+        dhist, dhist_calls = distance_hist_phase(tmp, idx)
+        log(f"phase 4h: {time.time() - t0:.1f} s")
     sz = {}
     for name, argv in (("stringz", []),
                        ("stringz150", ["-P", str(LONG_READ_LEN)])):
@@ -2093,13 +2472,16 @@ def main():
     by_path = dict(single=single["launches"], paired=paired["launches"],
                    single150=single150["launches"],
                    paired150=paired150["launches"], flat=flat["launches"],
+                   distance_hist=dhist["launches"],
                    **{name: v[1] for name, v in sz.items()},
-                   **{name: r["launches"] for name, r in rna.items()})
+                   **{name: r["launches"] for name, r in rna.items()},
+                   **{name: probe[name]["launches"] for name in probe_calls})
     at_path = {p: check_path_calls(p, c) for p, c in (
         ("single", single_calls), ("paired", paired_calls),
         ("single150", single150_calls), ("paired150", paired150_calls),
-        ("flat", flat_calls), *((name, v[2]) for name, v in sz.items()),
-        *rna_calls.items())}
+        ("flat", flat_calls), ("distance_hist", dhist_calls),
+        *((name, v[2]) for name, v in sz.items()), *rna_calls.items(),
+        *probe_calls.items())}
     k3_warp_sweep(single_calls)
     k5_vs_k1(rna_calls["rna_single_onehot"])
     log(f"total: {time.time() - t_start:.1f} s")

@@ -12,6 +12,7 @@ AlignerOptions.cpp), with the subcommands this port carries:
                 [<r1> <r2> ...] -o out [-so] [-S id]
                 [-s minSpacing maxSpacing] [-fs] [-I] [-tmh depth]
                 [-ct contamination-dir] [--device cuda|cpu]
+                [--hosts N [--host-id k] [--coordinator host:port]]
   trace         <index-dir> <ACGT-read> [<phred33-quals>] [--device cuda|cpu]
 
 Inputs may be FASTQ(.gz), SAM or BAM (`paired` takes one interleaved SAM
@@ -29,9 +30,14 @@ reference (AlignerOptions.cpp:94-165); -d and -h accept `n1:s:n2` ranges
 
 The engine runs on `--device`, CUDA by default; without a card that
 raises rather than falling back.  SNAP_TPU_LV_LANES=onehot sends the LV
-scoring to the second LV-lanes kernel (ops/lv.py).  `trace` prints one
-read's pass through the flat phases (models/trace.py).  Not yet ported (a
-clear error): `--hosts`.
+scoring to the second LV-lanes kernel (ops/lv.py); SNAP_TPU_LOOKUP=probe
+looks seeds up in the probe-chain table instead of the cuckoo layout
+(ops/lookup.py).  `trace` prints one read's pass through the flat phases
+(models/trace.py).  `--hosts N` splits a DNA run's plain FASTQ input into
+N byte ranges aligned by N processes on `--device` (parallel/multihost.py):
+alone it spawns N local workers, with `--host-id` it runs one host of a
+fleet (`--coordinator` is rank 0's gloo address).  As in the JAX package,
+only the batch size and -so reach the workers.
 
     python -m snap_rnaseq_tpu_torch.cli index ref.fa idx
     python -m snap_rnaseq_tpu_torch.cli transcriptome anno.gtf ref.fa tidx
@@ -52,14 +58,6 @@ import time
 
 # index caching across chained runs (AlignerContext.cpp:42-47)
 _INDEX_CACHE: dict[str, object] = {}
-
-
-class NotPorted(SystemExit):
-    """A feature of the JAX package's CLI that this port does not have yet."""
-
-    def __init__(self, what: str):
-        super().__init__(f"snap_rnaseq_tpu_torch: {what} is not yet ported "
-                         "(use the JAX package, snap_rnaseq_tpu.cli)")
 
 
 def _load_index_cached(directory: str):
@@ -135,7 +133,12 @@ def _add_align_flags(p: argparse.ArgumentParser, paired: bool = False):
     p.add_argument("-G", dest="_gap_penalty", type=int, default=0)
     p.add_argument("-a", dest="_deprecated_a", default=None)
     p.add_argument("--help", action="help")
+    # data-parallel processes (parallel/multihost.py): --hosts N with
+    # --host-id runs THIS process's share of a fleet; --hosts N alone
+    # spawns N local worker processes
     p.add_argument("--hosts", dest="n_hosts", type=int, default=1)
+    p.add_argument("--host-id", dest="host_id", type=int, default=None)
+    p.add_argument("--coordinator", dest="coordinator", default=None)
     if paired:
         p.add_argument("-s", dest="spacing", type=int, nargs=2,
                        default=[d["min_spacing"], d["max_spacing"]],
@@ -245,9 +248,22 @@ def _positional_split(args):
     return pos, rest
 
 
-def _refuse_unported(a):
-    if a.n_hosts > 1:
-        raise NotPorted("multi-host alignment (--hosts)")
+def _run_hosts(a, genome_dir, inputs, paired):
+    """--hosts N: this host's share (--host-id) or N local workers."""
+    from .parallel import multihost as mh
+    if a.host_id is not None:
+        merged = mh.run_host(genome_dir, inputs, a.output,
+                             host_id=a.host_id, n_hosts=a.n_hosts,
+                             paired=paired, coordinator=a.coordinator,
+                             sorted_output=a.sorted_output,
+                             batch_size=a.batch_size, device=a.device)
+    else:
+        merged = mh.launch_local(a.n_hosts, genome_dir, inputs, a.output,
+                                 paired=paired,
+                                 sorted_output=a.sorted_output,
+                                 batch_size=a.batch_size, device=a.device)
+    print("multihost:", merged)
+    return 0
 
 
 def cmd_single(argv):
@@ -270,7 +286,10 @@ def cmd_single(argv):
               "[<transcriptome-dir> <annotation>] <input>... -o out.sam",
               file=sys.stderr)
         return 2
-    _refuse_unported(a)
+    if a.n_hosts > 1:
+        if transcriptome_dir is not None or not isinstance(fastq, str):
+            raise SystemExit("--hosts applies to single plain-FASTQ DNA runs")
+        return _run_hosts(a, genome_dir, fastq, paired=False)
 
     opt = PipelineOptions(batch_size=a.batch_size, use_m=a.use_m,
                           read_group=a.read_group,
@@ -343,8 +362,12 @@ def cmd_paired(argv):
               "[<transcriptome-dir> <annotation>] <r1> <r2> [...] "
               "-o out.sam", file=sys.stderr)
         return 2
-    _refuse_unported(a)
     fq1, fq2 = _split_inputs(inputs)
+    if a.n_hosts > 1:
+        if transcriptome_dir is not None:
+            raise SystemExit("--hosts currently applies to the DNA paired "
+                             "pipeline (RNA multi-host: run per-host shards)")
+        return _run_hosts(a, genome_dir, (fq1, fq2), paired=True)
 
     opt = PairedPipelineOptions(
         batch_size=a.batch_size, use_m=a.use_m, read_group=a.read_group,

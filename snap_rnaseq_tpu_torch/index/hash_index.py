@@ -348,8 +348,13 @@ def cuckoo_layout_for(index: "GenomeIndex", verbose: bool = False) -> dict:
                                      index.ht_val2, index.shard_starts,
                                      verbose=verbose)
         if path:
+            # written whole under another name, then renamed: processes
+            # that open a fresh index at once never load a partial file
+            tmp = f"{path}.tmp{os.getpid()}"
             try:
-                np.savez(path, fingerprint=fp, **cached)
+                with open(tmp, "wb") as f:
+                    np.savez(f, fingerprint=fp, **cached)
+                os.replace(tmp, path)
             except OSError:
                 pass    # read-only index dir: memoize in memory only
     object.__setattr__(index, "_cuckoo_layout", cached)

@@ -22,9 +22,10 @@ The pair edit-distance budget (-d, default 15) bounds the SUM of the two
 ends' scores, as in the reference (AlignerOptions.cpp:73).
 
 Device rule: PairedAligner runs on the device it is given (default
-"cuda") and raises if that device is absent.  The JAX package's AOT
-executable cache and probe-chain lookup (SNAP_TPU_LOOKUP) have no
-counterpart here: the port runs eagerly on the cuckoo layout.
+"cuda") and raises if that device is absent.  SNAP_TPU_LOOKUP picks the
+seed lookup at construction (models/single.py index_state).  The JAX
+package's AOT executable cache has no counterpart here: the port runs
+eagerly.
 """
 from __future__ import annotations
 
@@ -36,7 +37,7 @@ import torch
 
 from ..constants import (DEFAULT_EXTRA_SEARCH_DEPTH, MAX_K, MAX_MERGE_DIST,
                          MAPQ_LIMIT_FOR_SINGLE_HIT, PAIRED_DEFAULTS)
-from ..index.hash_index import GenomeIndex, cuckoo_layout_for
+from ..index.hash_index import GenomeIndex
 from ..ops.bitpar import bitpar_distance_words
 from ..ops.genome_gather import gather_windows
 from ..ops.lv import NEG_INF, _first_argmin, phred_log_prob_device
@@ -425,10 +426,7 @@ class PairedAligner:
             cfg = PairedAlignerConfig(**{**cfg.__dict__,
                                          "truncation_mass": env_tm == "1"})
         self.cfg = cfg
-        arrays = index.device_arrays()
-        arrays["piece_starts"] = index.genome.piece_offsets
-        self.state = sg.index_state_from_numpy(
-            arrays, cuckoo_layout_for(index), self.device)
+        self.state = sg.index_state(index, self.device)
         self.genome_size = self.state["genome_size"]
 
     def align_batch_device(self, reads0, quals0, reads1, quals1):

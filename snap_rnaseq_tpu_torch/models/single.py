@@ -7,7 +7,8 @@ highest-weight element with two LV calls, stop early when no unseen
 location can win (BaseAligner.cpp:510-1399).  Here, as in the JAX engine,
 a batch of reads goes through phases over whole tensors:
 
-  seed_phase      pack + cuckoo-look-up every scheduled seed at once
+  seed_phase      pack + look up every scheduled seed at once (cuckoo
+                  layout, or the probe chain under SNAP_TPU_LOOKUP=probe)
   budget_phase    seed budget / popularity / lowest-possible-score tables
   expand_phase    every hit -> candidate slot (rare-seed-first, stable)
   _aggregate_rows rowwise (dir, loc) sort + segmented element/candidate
@@ -116,14 +117,16 @@ def resolve_device(device="cuda") -> torch.device:
     return dev
 
 
-def index_state_from_numpy(arrays: dict, cuckoo: dict, device) -> dict:
+def index_state_from_numpy(arrays: dict, cuckoo: dict | None,
+                           device) -> dict:
     """The numpy arrays an index ships to the device -> the port's tensors.
 
     arrays: GenomeIndex.device_arrays() (needs overflow, genome_size and
     genome_codes, or a pre-packed genome_p4) plus piece_starts (the
-    genome's piece_offsets); cuckoo: cuckoo_layout_for(index).  u32 arrays
-    become int32 tensors with the same bits, so both engines can align
-    against the very same tables."""
+    genome's piece_offsets); cuckoo: cuckoo_layout_for(index), or None to
+    ship the probe-chain table (ht_entries, shard_start, shard_size)
+    instead.  u32 arrays become int32 tensors with the same bits, so both
+    engines can align against the very same tables."""
     dev = torch.device(device)
     p4 = arrays.get("genome_p4")
     if p4 is None:
@@ -134,9 +137,25 @@ def index_state_from_numpy(arrays: dict, cuckoo: dict, device) -> dict:
         piece_starts=torch.from_numpy(
             np.asarray(arrays["piece_starts"]).astype(np.int32)).to(dev),
         genome_size=int(arrays["genome_size"]))
-    for k in ("ck_buckets", "ck_buckets2", "ck_stash"):
-        state[k] = u32.from_numpy(cuckoo[k], dev)
+    if cuckoo is None:
+        for k in ("ht_entries", "shard_start", "shard_size"):
+            state[k] = u32.from_numpy(arrays[k], dev)
+    else:
+        for k in ("ck_buckets", "ck_buckets2", "ck_stash"):
+            state[k] = u32.from_numpy(cuckoo[k], dev)
     return state
+
+
+def index_state(index: GenomeIndex, device) -> dict:
+    """An aligner's index tensors on `device`.  SNAP_TPU_LOOKUP, read
+    here as the JAX aligners read it at construction, picks the seed
+    lookup: "cuckoo" (the default) ships the bucket layout, anything else
+    the probe-chain table, and builds no layout."""
+    arrays = index.device_arrays()
+    arrays["piece_starts"] = index.genome.piece_offsets
+    use_cuckoo = os.environ.get("SNAP_TPU_LOOKUP", "cuckoo") == "cuckoo"
+    return index_state_from_numpy(
+        arrays, cuckoo_layout_for(index) if use_cuckoo else None, device)
 
 
 # ----------------------------------------------------------------------
@@ -210,9 +229,13 @@ def _full_like(x, v):
 # phases
 # ----------------------------------------------------------------------
 
-def seed_phase(reads, schedule, seed_len, overflow, genome_size, cuckoo,
+def seed_phase(reads, schedule, seed_len, overflow, genome_size, tables,
                select_first_valid: int = 0):
-    """Pack + look up every scheduled seed (cuckoo layout).
+    """Pack + look up every scheduled seed.
+
+    tables: the index tensors (index_state_from_numpy): the cuckoo layout
+    when they hold one (ck_buckets, ck_buckets2, ck_stash), else the
+    probe-chain table (ht_entries, shard_start, shard_size).
 
     select_first_valid=N: look up only each read's first N VALID schedule
     positions (the paired engine's budget, one unit per valid position,
@@ -234,9 +257,7 @@ def seed_phase(reads, schedule, seed_len, overflow, genome_size, cuckoo,
                       lo_r=take(packed["lo_r"]), hi_r=take(packed["hi_r"]),
                       valid=match.any(dim=2),
                       n_hi_bits=packed["n_hi_bits"])
-    found, fwd_val, rc_val = lk.lookup_seeds_cuckoo(
-        packed, cuckoo["ck_buckets"], cuckoo["ck_buckets2"],
-        cuckoo["ck_stash"])
+    found, fwd_val, rc_val = lookup(packed, tables)
     cnt_f, base_f = lk.expand_counts(fwd_val, overflow, genome_size)
     cnt_r, base_r = lk.expand_counts(rc_val, overflow, genome_size)
     out = dict(valid=packed["valid"], found=found,
@@ -246,6 +267,17 @@ def seed_phase(reads, schedule, seed_len, overflow, genome_size, cuckoo,
     if sel_pos is not None:
         out["sel_pos"] = sel_pos
     return out
+
+
+def lookup(packed: dict, tables: dict):
+    """(found, fwd_val, rc_val) of packed seeds from the cuckoo layout in
+    `tables`, or from its probe-chain table when it holds no layout."""
+    if "ck_buckets" in tables:
+        return lk.lookup_seeds_cuckoo(packed, tables["ck_buckets"],
+                                      tables["ck_buckets2"],
+                                      tables["ck_stash"])
+    return lk.lookup_seeds(packed, tables["ht_entries"],
+                           tables["shard_start"], tables["shard_size"])
 
 
 def budget_phase(valid, counts_global, wraps, cfg: SingleAlignerConfig):
@@ -1269,10 +1301,7 @@ class SingleAligner:
         if overrides:
             cfg = SingleAlignerConfig(**{**cfg.__dict__, **overrides})
         self.cfg = cfg
-        arrays = index.device_arrays()
-        arrays["piece_starts"] = index.genome.piece_offsets
-        self.state = index_state_from_numpy(arrays, cuckoo_layout_for(index),
-                                            self.device)
+        self.state = index_state(index, self.device)
         self.genome_size = self.state["genome_size"]
 
     def schedule_for(self, read_len: int):

@@ -23,7 +23,8 @@ exactly the split SURVEY.md §7 prescribes.
 
 Port of snap_rnaseq_tpu/rna/filter.py: the host logic is the same; the
 batched characterizer (characterize_batch, BatchCharacterizer) is torch
-code on the genome aligner's device, over the port's cuckoo lookup.
+code on the genome aligner's device, over the genome aligner's seed
+lookup (the cuckoo layout, or the probe chain under SNAP_TPU_LOOKUP=probe).
 """
 from __future__ import annotations
 
@@ -471,19 +472,18 @@ def characterize_batch(reads: torch.Tensor, state: dict, *, positions,
 
     reads: (B, L) uint8 codes on the index state's device; state: the
     aligner's index tensors (models/single.py index_state_from_numpy:
-    overflow, the cuckoo tables, genome_size).  Seeds whose hit count is
+    overflow, the cuckoo layout or the probe-chain table, genome_size).  Seeds whose hit count is
     in (0, max_hits] are expanded into at most `cpr` slots per read, the
     forward groups first; loc is the hit minus the seed's read offset in
     int32 (it wraps for genomes past 2^31 exactly as the int32 arithmetic
     of the JAX package's characterizer does)."""
-    from ..models.single import row_select
+    from ..models.single import lookup, row_select
     from ..ops import lookup as lk
     dev = reads.device
     i32 = torch.int32
     overflow, genome_size = state["overflow"], state["genome_size"]
     packed = lk.pack_seeds(reads, positions, seed_len)
-    found, fv, rv = lk.lookup_seeds_cuckoo(
-        packed, state["ck_buckets"], state["ck_buckets2"], state["ck_stash"])
+    found, fv, rv = lookup(packed, state)
     cf, bf = lk.expand_counts(fv, overflow, genome_size)
     cr, br = lk.expand_counts(rv, overflow, genome_size)
     okf = found & packed["valid"] & (cf > 0) & (cf <= max_hits)
@@ -519,9 +519,11 @@ class BatchCharacterizer:
     One pass computes every read's per-seed hit locations on the index
     state's device (the host fallback `characterize_seeds` walks each
     read's seeds in Python); rows whose hit total overflows the slot
-    budget fall back to the host walk, so the maps are always exact.  The
-    cuckoo layout is the only lookup: the aligners' state holds no probe
-    chain table."""
+    budget fall back to the host walk, so the maps are always exact.  Seeds
+    are looked up in whichever table the genome aligner's state holds (the
+    cuckoo layout, or the probe chain under SNAP_TPU_LOOKUP=probe), as the
+    JAX package's characterizer follows its genome aligner
+    (rna/pipeline.py)."""
 
     def __init__(self, index: GenomeIndex, state: dict, max_seeds: int = 12,
                  max_hits: int = 300, slots: int = 512):

@@ -85,6 +85,9 @@ def _tie_cases(rng, B, P, T, e_max):
     pytest.param(16, 100, False, "u8", False, id="16-100-False-u8"),
     pytest.param(5, 32, True, None, False, id="5-32-True-None"),
     pytest.param(31, 128, True, "f32", False, id="31-128-True-f32"),
+    # distance_hist's call: e_max 31, no quality, text P + 31, rows of
+    # mixed pattern length padded to the longest
+    pytest.param(31, 100, False, None, False, id="31-100-False-None"),
     pytest.param(8, 64, False, None, False, id="8-64-False-None"),
     # D = 35: diagonals 32-34 in each lane's second slot
     pytest.param(17, 100, True, "f32", False, id="17-100-True-f32"),
@@ -540,3 +543,78 @@ def test_flat_phases_on_card_equal_cpu(card):
                     np.testing.assert_array_equal(g.numpy(), v.numpy(),
                                                   err_msg=k)
         assert (int(sc_c["n_fast"]) > 0) == (fast == "1")
+
+
+@pytest.mark.parametrize("kind", ["single", "paired"])
+def test_probe_lookup_aligner_on_card_equals_cpu(card, kind, monkeypatch):
+    """Under SNAP_TPU_LOOKUP=probe the aligners ship the probe-chain table
+    and walk it on the card; the results equal the CPU's (and the kernels
+    still launch)."""
+    from snap_rnaseq_tpu_torch.models.paired import PairedAligner
+    from snap_rnaseq_tpu_torch.utils.synth_genome import wgsim_pairs
+    monkeypatch.setenv("SNAP_TPU_LOOKUP", "probe")
+    codes = hg_like_genome(300_000, seed=7)
+    index = build_index(genome_from_codes(codes), seed_len=20,
+                        load_factor=0.95)
+    r0, q0, r1, q1, _, _ = wgsim_pairs(codes, 256, 100, seed=3)
+    make, args = ((SingleAligner, (r0, q0)) if kind == "single"
+                  else (PairedAligner, (r0, q0, r1, q1)))
+    kernels.reset_launches()
+    al = make(index, device=card)
+    assert "ht_entries" in al.state and "ck_buckets" not in al.state
+    got = al.align_batch(*args)
+    assert kernels.LAUNCHES["K1_lv_lanes"] > 0
+    want = make(index, device="cpu").align_batch(*args)
+    for k, v in want.items():
+        if v.dtype == np.float32:
+            np.testing.assert_allclose(got[k], v, rtol=1e-5, atol=1e-5,
+                                       err_msg=k)
+        else:
+            np.testing.assert_array_equal(got[k], v, err_msg=k)
+
+
+def test_launch_local_on_card_equals_one_process(card, tmp_path):
+    """Two worker processes sharing the card (gloo for the stats) give the
+    one-process run's SAM body and stats; each worker ran on the card and
+    launched K1 and K2."""
+    import contextlib
+    import io
+    import json
+    from snap_rnaseq_tpu_torch.models.paired_pipeline import (
+        PairedEndPipeline, PairedPipelineOptions)
+    from snap_rnaseq_tpu_torch.parallel import multihost as mh
+    from snap_rnaseq_tpu_torch.utils.synth_genome import wgsim_pairs
+    from snap_rnaseq_tpu_torch.utils.tables import decode_bases
+    codes = hg_like_genome(300_000, seed=8)
+    index = build_index(genome_from_codes(codes), seed_len=20)
+    index.save(str(tmp_path / "idx"))
+    n = 600
+    r0, q0, r1, q1, _, _ = wgsim_pairs(codes, n, 100, seed=4)
+    fq = (str(tmp_path / "r1.fq"), str(tmp_path / "r2.fq"))
+    with open(fq[0], "wb") as f0, open(fq[1], "wb") as f1:
+        for i in range(n):
+            f0.write(b"@p%d/1\n%s\n+\n%s\n" % (i, decode_bases(r0[i]),
+                                                 (q0[i] + 33).tobytes()))
+            f1.write(b"@p%d/2\n%s\n+\n%s\n" % (i, decode_bases(r1[i]),
+                                                 (q1[i] + 33).tobytes()))
+    one = str(tmp_path / "one.sam")
+    stats = PairedEndPipeline(
+        index, options=PairedPipelineOptions(batch_size=256),
+        device=card).run(*fq, one)
+    out = str(tmp_path / "multi.sam")
+    err = io.StringIO()
+    with contextlib.redirect_stderr(err):
+        merged = mh.launch_local(2, str(tmp_path / "idx"), fq, out,
+                                 paired=True, batch_size=256, timeout=600)
+    body = lambda p: [l for l in open(p, "rb") if l[:1] != b"@"]
+    assert body(out) == body(one)
+    assert merged["total_reads"] == stats.total_reads == 2 * n
+    assert merged["aligned_as_pairs"] == stats.aligned_as_pairs
+    workers = [json.loads(l.split(":", 1)[1]) for l in
+               err.getvalue().splitlines()
+               if l.startswith("multihost worker:")]
+    assert sorted(w["host_id"] for w in workers) == [0, 1]
+    for w in workers:
+        assert w["device"].startswith("cuda") and w["peak_device_bytes"] > 0
+        assert w["launches"]["K1_lv_lanes"] > 0
+        assert w["launches"]["K2_bitpar_packed"] > 0

@@ -28,6 +28,7 @@ import pytest
 import torch
 
 import test_golden_paired_rna as golden_paired
+from snap_rnaseq_tpu.cli import main as jax_cli
 from snap_rnaseq_tpu.index.genome import genome_from_codes as jgenome
 from snap_rnaseq_tpu.index.hash_index import build_index as jbuild_index
 from snap_rnaseq_tpu.index.hash_index import cuckoo_layout_for
@@ -493,8 +494,13 @@ def test_cuda_without_card_raises(golden, monkeypatch):
 
 
 def test_not_ported_paired_forms_raise(golden):
-    base = ["paired", golden["idx"], golden["r1"], golden["r2"], "-o"]
+    """The JAX package's own --hosts refusal for `paired` (snap_rnaseq_tpu/
+    cli.py:356-358), kept by the port: the RNA form."""
+    base = ["paired", golden["idx"], golden["idx"], "anno.gtf", golden["r1"],
+            golden["r2"], "-o"]
     for argv in (base + ["x.sam", "--hosts", "2"],
                  base + ["x.bam", "-so", "--hosts", "2"]):
-        with pytest.raises(SystemExit, match="not yet ported"):
-            port_cli(argv)
+        for cli in (port_cli, jax_cli):
+            with pytest.raises(SystemExit, match="--hosts currently applies to "
+                                                 "the DNA paired pipeline"):
+                cli(argv)

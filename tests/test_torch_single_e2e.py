@@ -16,6 +16,7 @@ import pytest
 import torch
 
 import test_golden
+from snap_rnaseq_tpu.cli import main as jax_cli
 from snap_rnaseq_tpu.index.genome import genome_from_codes
 from snap_rnaseq_tpu.index.hash_index import GenomeIndex as JGenomeIndex
 from snap_rnaseq_tpu.index.hash_index import build_index
@@ -135,9 +136,15 @@ def test_cuda_without_card_raises(golden, monkeypatch):
 
 
 def test_not_ported_forms_raise(golden):
-    for argv in (["single", golden["idx"], golden["fq"], "-o", "x.sam",
-                  "--hosts", "2"],
-                 ["single", golden["idx"], golden["fq"], "-so", "-o",
-                  "x.bam", "--hosts", "4"]):
-        with pytest.raises(SystemExit, match="not yet ported"):
-            port_cli(argv)
+    """The JAX package's own --hosts refusals (snap_rnaseq_tpu/cli.py:268-
+    270), kept by the port: the RNA form (a transcriptome directory and
+    an annotation) and several input files."""
+    for argv in (["single", golden["idx"], golden["idx"], "anno.gtf",
+                  golden["fq"], "-o", "x.sam", "--hosts", "2"],
+                 ["single", golden["idx"], golden["fq"], golden["fq"],
+                  "-so", "-o", "x.bam", "--hosts", "4"]):
+        for cli in (port_cli, jax_cli):
+            with pytest.raises(SystemExit,
+                               match="--hosts applies to single plain-FASTQ "
+                                     "DNA runs"):
+                cli(argv)
