@@ -93,6 +93,28 @@ failure; nothing is caught.
    h. tools/distance_hist.py on 4a's SAM on the card (path
       distance_hist: K1 at e_max 31 without qualities) and on the CPU,
       the histograms identical.
+   i. mesh: parallel/sharded.py with every coordinate on the card, on the
+      same index.  ShardedSingleAligner on meshes (1, 2), (1, 4) and
+      (2, 2) over 4 x 1024 of 4a's reads (paths mesh_single_<shape>) and
+      ShardedPairedAligner on (1, 4) over 4 x 1024 of 4b's pairs (path
+      mesh_paired), each batch held to the single-card engine: a row may
+      differ only where an engine reports score_overflow or a truncated
+      candidate list (printed per batch); K2 forward launches once per
+      coordinate, end and batch, K1 at least as often.  One (2, 2) batch
+      under SNAP_TPU_LOOKUP=probe gives the cuckoo run's results and the
+      single-card engine's found seeds under that lookup.
+      PairedEndPipeline with the (1, 4) mesh over all of 4b's pairs (path
+      mesh_paired_sam; K3 must launch): its SAM equals 4b's but for pairs
+      whose engine results differ as above.  RnaSingleEndPipeline with
+      (2, 2) meshes for genome and transcriptome over 4 x 1024 of 4c's
+      reads (path mesh_rna_single): SAM (without @PG) equal to the stock
+      pipeline's but for reads whose genome or transcriptome results
+      differ as above, count files equal where the SAMs are (else their
+      unlike lines printed).  64 reads and 64 pairs through the (2, 2)
+      mesh on the card and on the CPU: equal.  Prints partition_index
+      seconds and bytes per index and n_index, launches and peak device
+      bytes per mesh, wall and device-busy ms per batch, each mesh beside
+      the single-card engine, and the seconds of each step.
    The launch counters are zeroed just before each run and read just
    after; each kernel of that path must have launched.  Prints the rate,
    the aligned share, the share placed at the true origin (checked), the
@@ -106,7 +128,8 @@ failure; nothing is caught.
 5. stringz: the port's tools/stringz at its defaults (-P 100) and at
    -P 150 on the card; K4 must have launched in each.
 6. Path shapes: during each main path's run (4a, 4b, 4c, 4e's `flat`,
-   4g's probe runs, 4h's `distance_hist`, 5) every call of a kernel wrapper is counted by its argument shapes,
+   4g's probe runs, 4h's `distance_hist`, 4i's mesh paths, 5) every
+   call of a kernel wrapper is counted by its argument shapes,
    and the first call of each shape is recorded with a copy of its
    inputs.  Each recorded
    call is re-run on those inputs against the plain version (same
@@ -181,7 +204,9 @@ def device_ms(fn, reps):
     kernel (torch.cuda._sleep) holds the stream while the host queues all
     `reps` calls behind it, so the CUDA events time the calls back to
     back on the device (each call's own small kernels included).  The
-    spin doubles until the host has finished queueing before it ends."""
+    spin doubles until the host has finished queueing before it ends; a
+    call that waits on the device (a host copy, a pageable upload) never
+    does, and raises."""
     import torch
     fn()
     torch.cuda.synchronize()
@@ -203,6 +228,9 @@ def device_ms(fn, reps):
         if queued_in_time:
             return start.elapsed_time(end) / reps
         spin_s *= 2
+        if spin_s > 30:
+            raise AssertionError("device_ms: the call waits on the device "
+                                 "while it is queued")
 
 
 @functools.lru_cache(None)
@@ -1972,6 +2000,385 @@ def distance_hist_phase(tmp, idx, device="cuda"):
     return res, calls
 
 
+# ---------------------------------------------------------------- phase 4i
+
+MESH_SHAPES = ((1, 2), (1, 4), (2, 2))
+MESH_CORE = ("K1_lv_lanes", "K2_bitpar_packed")
+# the per-read results both engines give (the mesh folds its scalar
+# counters into per-read vectors; truncation counts differ by design)
+SINGLE_KEYS = ("result", "loc", "direction", "score", "mapq", "log_pbest",
+               "log_pall", "popular")
+PAIRED_KEYS = ("pair_found", "pair_score", "pair_mapq", "pair_log_pall") + \
+    tuple(f"{k}{e}" for e in (0, 1)
+          for k in ("result", "loc", "dir", "score", "mapq"))
+
+
+@contextlib.contextmanager
+def shared_partitions(seconds):
+    """parallel/sharded.py partition_index memoized for the aligners built
+    inside: the meshes over one index with one n_index share its slices.
+    Each partition's seconds and bytes (the slices' arrays) go to
+    `seconds`, keyed by the index's genome size, n_index and lookup."""
+    from snap_rnaseq_tpu_torch.parallel import sharded
+    real, memo = sharded.partition_index, {}
+
+    def memoized(index, n_idx, use_cuckoo=None):
+        key = (id(index), n_idx, use_cuckoo)
+        if key not in memo:
+            t0 = time.time()
+            memo[key] = real(index, n_idx, use_cuckoo)
+            seconds[f"{index.genome_size} bases, n_index {n_idx}, "
+                    f"{'cuckoo' if use_cuckoo else 'probe'}"] = dict(
+                s=time.time() - t0, bytes=sum(
+                    a.nbytes for a in memo[key].values()))
+        return memo[key]
+    sharded.partition_index = memoized
+    try:
+        yield
+    finally:
+        sharded.partition_index = real
+
+
+class BatchSpy:
+    """Keeps every batch an aligner is handed (copies) and its device
+    outputs, for checks after a pipeline's run; stop() unhooks it."""
+
+    def __init__(self, aligner):
+        self.aligner, self.calls = aligner, []
+        self.real = aligner.align_batch_device
+        aligner.align_batch_device = self
+
+    def __call__(self, *args):
+        out = self.real(*args)
+        self.calls.append(([a.clone() for a in args], out))
+        return out
+
+    def stop(self):
+        del self.aligner.align_batch_device
+
+
+def fastq_batches(path, n, batch):
+    """The first n records of a FASTQ as (codes, ASCII quals) uint8
+    tensor pairs of `batch` rows."""
+    import torch
+    from snap_rnaseq_tpu_torch.utils.tables import encode_bases
+    lines = open(path, "rb").read().splitlines()[:4 * n]
+    codes = np.stack([encode_bases(lines[i + 1])
+                      for i in range(0, len(lines), 4)])
+    quals = np.stack([np.frombuffer(lines[i + 3], np.uint8)
+                      for i in range(0, len(lines), 4)])
+    return [(torch.from_numpy(codes[i:i + batch]),
+             torch.from_numpy(quals[i:i + batch]))
+            for i in range(0, n, batch)]
+
+
+def rows_unlike(got, want, keys):
+    """Row indices where two engines' numpy results differ on `keys`
+    (log-probabilities beyond TOL)."""
+    bad = np.zeros(len(want[keys[0]]), bool)
+    for k in keys:
+        g, w = np.asarray(got[k]), np.asarray(want[k])
+        if w.dtype == np.float32:
+            both_inf = np.isneginf(g) & np.isneginf(w)
+            bad |= ~both_inf & ~(np.abs(g - w) <= TOL + TOL * np.abs(w))
+        else:
+            bad |= g != w
+    return np.flatnonzero(bad)
+
+
+def single_causes(got, want):
+    """(score_overflow of the single-card engine, of the mesh (its largest
+    data shard's), rows whose candidate list either engine truncated)."""
+    return (int(want["score_overflow"]),
+            int(got["score_overflow_vec"].max()),
+            (want["truncated"] > 0) | (got["truncated"] > 0))
+
+
+def paired_causes(got, want):
+    # the mesh's paired outputs carry no score_overflow (as in the JAX
+    # package); the single-card engine's is pooled over both ends
+    return (int(want["score_overflow0"]), None,
+            (want["truncated0"] > 0) | (want["truncated1"] > 0)
+            | (got["truncated0"] > 0) | (got["truncated1"] > 0))
+
+
+def engine_gap(name, results, keys, causes):
+    """Per batch of (mesh, single-card engine) results, the rows that
+    differ.  A row may differ only in a batch where an engine reports
+    score_overflow (the batch-cut fault, ROADMAP.md section 3), or where
+    its candidate list was truncated (the mesh keeps cand_per_read
+    candidates per index shard, the single-card engine cand_per_read in
+    all).  Returns (per batch {rows_unlike, score_overflow [single-card,
+    mesh], truncated_rows_unlike}, the set of (batch, row) that
+    differ)."""
+    out, unlike = [], set()
+    for b, (got, want) in enumerate(results):
+        rows = rows_unlike(got, want, keys)
+        ov_single, ov_mesh, truncated = causes(got, want)
+        out.append(dict(rows_unlike=int(rows.size),
+                        score_overflow=[ov_single, ov_mesh],
+                        truncated_rows_unlike=int(truncated[rows].sum())))
+        unlike |= {(b, int(r)) for r in rows}
+        loose = rows[~truncated[rows]]
+        if loose.size and not (ov_single or ov_mesh):
+            raise AssertionError(
+                f"{name}, batch {b}: rows {loose[:8].tolist()} differ from "
+                "the single-card engine with no score_overflow reported "
+                "and no candidate list truncated")
+    return out, unlike
+
+
+def mesh_engine_times(step, batches, per_batch, device):
+    """Wall and device-busy ms per batch (engine_phase: one warm-up
+    batch, the rest timed); not measured on the CPU."""
+    if device != "cuda":
+        return None
+    e = engine_phase(step, batches, per_batch, n_warm=1,
+                     n_timed=len(batches) - 1)
+    return {k: e[k] for k in ("wall_ms_per_batch",
+                              "device_busy_ms_per_batch",
+                              "device_idle_share", "device_ops_per_batch",
+                              "kernel_ms_per_batch")}
+
+
+def mesh_phase(tmp, idx, batch, n_batches=4, device="cuda"):
+    """Phase 4i: parallel/sharded.py's mesh with every coordinate on the
+    card, on the 64 Mb index (paths mesh_single_<shape>, mesh_paired,
+    mesh_paired_sam, mesh_rna_single; calls recorded)."""
+    import torch
+    from snap_rnaseq_tpu_torch.cli import _load_index_cached
+    from snap_rnaseq_tpu_torch.index.hash_index import GenomeIndex
+    from snap_rnaseq_tpu_torch.models.paired import PairedAligner
+    from snap_rnaseq_tpu_torch.models.paired_pipeline import (
+        PairedEndPipeline, PairedPipelineOptions)
+    from snap_rnaseq_tpu_torch.models.pipeline import PipelineOptions
+    from snap_rnaseq_tpu_torch.models.single import SingleAligner, fetch
+    from snap_rnaseq_tpu_torch.parallel import sharded
+    from snap_rnaseq_tpu_torch.rna.pipeline import RnaSingleEndPipeline
+    index = _load_index_cached(idx)
+    n = n_batches * batch
+    on_dev = lambda b: tuple(a.to(device) for a in b)
+    reads = [on_dev(b) for b in fastq_batches(
+        os.path.join(tmp, f"reads{READ_LEN}.fq"), n, batch)]
+    fq1, fq2 = (os.path.join(tmp, f"p{READ_LEN}_r{e}.fq") for e in (1, 2))
+    pairs = [on_dev(a + b) for a, b in zip(fastq_batches(fq1, n, batch),
+                                           fastq_batches(fq2, n, batch))]
+    res, calls, part_s = dict(meshes={}, seconds={}), {}, {}
+    t_phase = time.time()
+    stamp = lambda step: res["seconds"].__setitem__(
+        step, time.time() - t_phase)      # seconds into the phase
+
+    def counted_batches(al, batches, path, name):
+        outs, launches, c, wall_s, peak = counted_run(
+            lambda: [fetch(al.align_batch_device(*b)) for b in batches],
+            path, name, device)
+        n_fwd = al.n_data * al.n_idx * len(batches) * (len(batches[0]) // 2)
+        if device == "cuda" and (launches["K2_bitpar_packed"] != n_fwd
+                                 or launches["K1_lv_lanes"] < n_fwd):
+            raise AssertionError(
+                f"{name}: K2 forward launched {launches['K2_bitpar_packed']}"
+                f" times and K1 {launches['K1_lv_lanes']}, for {n_fwd} "
+                "(data x index) coordinates and ends over the batches")
+        calls[name] = c
+        return outs, dict(launches=launches, wall_s=wall_s,
+                          peak_device_bytes=peak,
+                          launches_per_batch={k: v / len(batches) for k, v
+                                              in launches.items()})
+
+    single = SingleAligner(index, device=device)
+    want = [fetch(single.align_batch_device(*b)) for b in reads]
+    res["single_card_engine"] = mesh_engine_times(
+        lambda b: fetch(single.align_batch_device(*b)), reads, batch,
+        device)
+    with shared_partitions(part_s):
+        for shape in MESH_SHAPES:
+            name = f"mesh_single_{shape[0]}x{shape[1]}"
+            al = sharded.ShardedSingleAligner(
+                index, sharded.make_mesh(*shape, device=device))
+            got, row = counted_batches(al, reads, MESH_CORE, name)
+            row["batches"], _ = engine_gap(name, zip(got, want),
+                                           SINGLE_KEYS, single_causes)
+            row["engine"] = mesh_engine_times(
+                lambda b: fetch(al.align_batch_device(*b)), reads, batch,
+                device)
+            res["meshes"][name] = row
+            log(f"mesh {name}: {json.dumps(row)}")
+            stamp(name)
+        mesh22, got22 = al, got
+
+        # one batch under the probe-chain lookup (no layout built): the
+        # cuckoo run's results; the found seeds (n_lookups) those of the
+        # single-card engine under the same lookup, whose chains are cut
+        # at MAX_PROBES (ops/lookup.py)
+        with seed_lookup("probe"):
+            probe = sharded.ShardedSingleAligner(
+                index, sharded.make_mesh(2, 2, device=device))
+            probe1 = SingleAligner(index, device=device)
+        got = fetch(probe.align_batch_device(*reads[0]))
+        if rows_unlike(got, got22[0], SINGLE_KEYS + ("truncated",)).size:
+            raise AssertionError("mesh (2, 2): results under the probe "
+                                 "lookup differ from the cuckoo lookup's")
+        found = lambda o: int(o["n_lookups"][::batch // 2].sum())
+        res["probe_n_lookups"] = dict(
+            mesh_probe=found(got), mesh_cuckoo=found(got22[0]),
+            single_card_probe=int(fetch(probe1.align_batch_device(
+                *reads[0]))["n_lookups"]),
+            single_card_cuckoo=int(want[0]["n_lookups"]))
+        log(f"mesh probe batch, seeds found: {json.dumps(res['probe_n_lookups'])}")
+        stamp("probe")
+        if found(got) != res["probe_n_lookups"]["single_card_probe"]:
+            raise AssertionError("mesh (2, 2) under the probe lookup: not "
+                                 "the single-card engine's found seeds")
+        del probe, probe1
+
+        # pairs: the engine, then PairedEndPipeline over all of 4b's pairs
+        paired = PairedAligner(index, device=device)
+        want_p = [fetch(paired.align_batch_device(*b)) for b in pairs]
+        res["paired_card_engine"] = mesh_engine_times(
+            lambda b: fetch(paired.align_batch_device(*b)), pairs, batch,
+            device)
+        al = sharded.ShardedPairedAligner(
+            index, sharded.make_mesh(1, 4, device=device))
+        got_p, row = counted_batches(al, pairs, RESCUE_CORE, "mesh_paired")
+        row["batches"], _ = engine_gap("mesh_paired", zip(got_p, want_p),
+                                       PAIRED_KEYS, paired_causes)
+        row["engine"] = mesh_engine_times(
+            lambda b: fetch(al.align_batch_device(*b)), pairs, batch, device)
+        res["meshes"]["mesh_paired"] = row
+        log(f"mesh mesh_paired: {json.dumps(row)}")
+        stamp("mesh_paired")
+
+        out = os.path.join(tmp, "mesh_paired.sam")
+        pipe = PairedEndPipeline(index, options=PairedPipelineOptions(
+            batch_size=batch), aligner=al, device=device)
+        spy = BatchSpy(al)
+        _, launches, calls["mesh_paired_sam"], wall_s, peak = counted_run(
+            lambda: pipe.run(fq1, fq2, out), BAM_PATH, "mesh_paired_sam",
+            device)
+        got_sam = sam_body(open(out, "rb").read().splitlines())
+        ref_sam = sam_body(open(os.path.join(tmp, f"paired{READ_LEN}.sam"),
+                                "rb").read().splitlines())
+        row = dict(launches=launches, wall_s=wall_s, peak_device_bytes=peak,
+                   pairs=len(ref_sam) // 2)
+        if got_sam != ref_sam:
+            # the pairs whose records differ must be pairs whose engine
+            # results differ, each with its cause (the first call is the
+            # pipeline's warm-up of batch 0)
+            n_b = len(ref_sam) // 2 // batch
+            gap, allowed = engine_gap("mesh_paired_sam", [
+                (fetch(o), fetch(paired.align_batch_device(*a)))
+                for a, o in spy.calls[len(spy.calls) - n_b:]],
+                PAIRED_KEYS, paired_causes)
+            unlike = {divmod(i // 2, batch) for i, (a, b) in
+                      enumerate(zip(got_sam, ref_sam)) if a != b}
+            if len(got_sam) != len(ref_sam) or not unlike <= allowed:
+                raise AssertionError("mesh_paired_sam: records differ from "
+                                     "4b's where the engines agree")
+            row.update(pairs_unlike_4b=len(unlike), batches=gap)
+        res["meshes"]["mesh_paired_sam"] = row
+        log(f"mesh mesh_paired_sam: {json.dumps(row)}")
+        stamp("mesh_paired_sam")
+        del al, pipe, spy, paired
+
+        # RNA single with mesh aligners for genome and transcriptome
+        tidx, gtf = os.path.join(tmp, "tidx"), os.path.join(tmp, "real.gtf")
+        rna_fq = head_fastq(os.path.join(tmp, "rna_reads.fq"),
+                            os.path.join(tmp, "mesh_rna.fq"), n)
+        opts = PipelineOptions(batch_size=batch)
+        t_index = GenomeIndex.load(tidx)
+        t_mesh = sharded.ShardedSingleAligner(
+            t_index, sharded.make_mesh(2, 2, device=device))
+        outs = {k: os.path.join(tmp, f"mesh_rna_{k}", "r.sam")
+                for k in ("stock", "mesh")}
+        for p in outs.values():
+            os.makedirs(os.path.dirname(p))
+        t0 = time.time()
+        RnaSingleEndPipeline(idx, tidx, gtf, options=opts,
+                             device=device).run(rna_fq, outs["stock"])
+        stock_s = time.time() - t0
+        spies = BatchSpy(mesh22), BatchSpy(t_mesh)
+        _, launches, calls["mesh_rna_single"], wall_s, peak = counted_run(
+            lambda: RnaSingleEndPipeline(
+                idx, tidx, gtf, options=opts, device=device,
+                g_aligner=mesh22, t_aligner=t_mesh).run(rna_fq,
+                                                        outs["mesh"]),
+            SINGLE_PATH, "mesh_rna_single", device)
+        for spy in spies:
+            spy.stop()
+        row = dict(launches=launches, wall_s=wall_s, stock_wall_s=stock_s,
+                   peak_device_bytes=peak)
+        files = {k: sorted(os.listdir(os.path.dirname(p)))
+                 for k, p in outs.items()}
+        if files["mesh"] != files["stock"]:
+            raise AssertionError("mesh_rna_single: not the stock run's files")
+        text = {k: {f: [l for l in open(os.path.join(os.path.dirname(p), f),
+                                         "rb").read().splitlines()
+                        if not l.startswith(b"@PG")] for f in files[k]}
+                for k, p in outs.items()}
+        sam = {k: sam_body(t["r.sam"]) for k, t in text.items()}
+        if sam["mesh"] != sam["stock"]:
+            # a record may differ only for a read whose genome or
+            # transcriptome results differ between the engines, each with
+            # its cause (engine_gap); the run files then follow the SAM
+            _, names = fastq_codes(rna_fq, n)
+            at = {name: i for i, name in enumerate(names)}
+            allowed = set()
+            for spy, ref_al in ((spies[0], single),
+                                (spies[1], SingleAligner(t_index,
+                                                         device=device))):
+                gap, unlike = engine_gap("mesh_rna_single", [
+                    (fetch(o), fetch(ref_al.align_batch_device(*a)))
+                    for a, o in spy.calls], SINGLE_KEYS, single_causes)
+                allowed |= unlike
+                row.setdefault("batches", []).append(gap)
+            unlike = set()
+            for a, b in zip(sam["mesh"], sam["stock"]):
+                qname = a.split(b"\t", 1)[0]
+                if qname != b.split(b"\t", 1)[0]:
+                    raise AssertionError("mesh_rna_single: the records' "
+                                         "order differs")
+                if a != b:
+                    unlike.add(divmod(at[qname], batch))
+            if len(sam["mesh"]) != len(sam["stock"]) or not unlike <= allowed:
+                raise AssertionError("mesh_rna_single: records differ from "
+                                     "the stock run's where the engines "
+                                     "agree")
+            row["reads_unlike_stock"] = len(unlike)
+        row["run_file_lines_unlike_stock"] = {
+            f: sum(a != b for a, b in zip(text["mesh"][f], text["stock"][f]))
+            + abs(len(text["mesh"][f]) - len(text["stock"][f]))
+            for f in files["stock"] if f != "r.sam"}
+        if sam["mesh"] == sam["stock"] and any(
+                row["run_file_lines_unlike_stock"].values()):
+            raise AssertionError("mesh_rna_single: the SAMs agree but the "
+                                 "run files do not")
+        res["meshes"]["mesh_rna_single"] = row
+        log(f"mesh mesh_rna_single: {json.dumps(row)}")
+        stamp("mesh_rna_single")
+        del t_mesh, spies, single
+
+        # the (2, 2) mesh on the card against the same mesh on the CPU
+        cpu_mesh = sharded.make_mesh(2, 2, device="cpu")
+        small = reads[0][0][:64], reads[0][1][:64]
+        same_tensors("mesh (2, 2) single, card / CPU",
+                     mesh22.align_batch_device(*small),
+                     sharded.ShardedSingleAligner(
+                         index, cpu_mesh).align_batch_device(*small))
+        small_p = tuple(a[:64] for a in pairs[0])
+        same_tensors("mesh (2, 2) paired, card / CPU",
+                     sharded.ShardedPairedAligner(
+                         index, sharded.make_mesh(2, 2, device=device))
+                     .align_batch_device(*small_p),
+                     sharded.ShardedPairedAligner(
+                         index, cpu_mesh).align_batch_device(*small_p))
+    stamp("card_vs_cpu")
+    res["partition_index_s"] = part_s
+    log("mesh: seconds into the phase at each step's end: "
+        + json.dumps(res["seconds"]))
+    log(f"mesh partition_index seconds: {json.dumps(part_s)}")
+    return res, calls
+
+
 # ---------------------------------------------------------------- phase 4c
 
 RNA_GENES = 1300
@@ -2460,6 +2867,10 @@ def main():
         t0 = time.time()
         dhist, dhist_calls = distance_hist_phase(tmp, idx)
         log(f"phase 4h: {time.time() - t0:.1f} s")
+        t0 = time.time()
+        mesh, mesh_calls = mesh_phase(tmp, idx, BATCH)
+        log("real size, mesh (4i): " + json.dumps(mesh))
+        log(f"phase 4i: {time.time() - t0:.1f} s")
     sz = {}
     for name, argv in (("stringz", []),
                        ("stringz150", ["-P", str(LONG_READ_LEN)])):
@@ -2475,13 +2886,14 @@ def main():
                    distance_hist=dhist["launches"],
                    **{name: v[1] for name, v in sz.items()},
                    **{name: r["launches"] for name, r in rna.items()},
-                   **{name: probe[name]["launches"] for name in probe_calls})
+                   **{name: probe[name]["launches"] for name in probe_calls},
+                   **{name: r["launches"] for name, r in mesh["meshes"].items()})
     at_path = {p: check_path_calls(p, c) for p, c in (
         ("single", single_calls), ("paired", paired_calls),
         ("single150", single150_calls), ("paired150", paired150_calls),
         ("flat", flat_calls), ("distance_hist", dhist_calls),
         *((name, v[2]) for name, v in sz.items()), *rna_calls.items(),
-        *probe_calls.items())}
+        *probe_calls.items(), *mesh_calls.items())}
     k3_warp_sweep(single_calls)
     k5_vs_k1(rna_calls["rna_single_onehot"])
     log(f"total: {time.time() - t_start:.1f} s")

@@ -98,6 +98,44 @@ def _key(score, logp, live):
                        f3e12)
 
 
+def _dense_per_read(u, sc, in_prob_flags, B, K):
+    """Scatter the flat, read-sorted candidate arrays into (B, K) dense.
+
+    Only SCORED candidates are densified (unscored rows are dead in the
+    pair join anyway), and the K-cap ranks among scored rows, so a wide
+    overflow tier carrying hundreds of unscored repeat candidates per read
+    can never push a true scored hit past the cap.  No engine path calls
+    it; it is held to the JAX package's function."""
+    r = u["read"]
+    dev = r.device
+    sel = u["live"] & sc["scored_ok"]
+    ones = sel.to(I32)
+    cum = torch.cumsum(ones, 0, dtype=I32) - ones    # exclusive prefix count
+    first = sg._segment_min(torch.where(sel, cum, BIG), r, B)
+    rank = cum - first[r.long()]
+    keep = sel & (rank < K)
+    # the JAX scatter's mode="drop" on rows that are not kept
+    tr, tc = r[keep].long(), rank[keep].long()
+
+    def scat(x, fill):
+        out = torch.full((B, K), fill, dtype=x.dtype, device=dev)
+        out[tr, tc] = x[keep]
+        return out
+
+    return dict(
+        loc=scat(sc["loc_adj"], 0),
+        dir=scat(u["dir"], 0),
+        score=scat(torch.where(sc["scored_ok"], sc["score"], BIG), BIG),
+        logp=scat(torch.where(sc["scored_ok"], sc["logp"], NEG_INF),
+                  NEG_INF),
+        live=scat(sc["scored_ok"], False),
+        in_prob=scat(in_prob_flags, False),
+        # scored candidates the K-cap dropped from the pair join (flood
+        # reads with > K scored locations): observable, never silent
+        overflow=(sel & ~keep).sum(dtype=I32),
+    )
+
+
 def _mate_rescue_end(d_e, d_m, reads_e, quals_e, genome_p4, piece_starts,
                      ecfg, cfg: PairedAlignerConfig, read_len, genome_size,
                      B, qlp_e=None):

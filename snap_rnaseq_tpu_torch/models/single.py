@@ -126,16 +126,21 @@ def index_state_from_numpy(arrays: dict, cuckoo: dict | None,
     genome's piece_offsets); cuckoo: cuckoo_layout_for(index), or None to
     ship the probe-chain table (ht_entries, shard_start, shard_size)
     instead.  u32 arrays become int32 tensors with the same bits, so both
-    engines can align against the very same tables."""
+    engines can align against the very same tables.  A genome_p4 or
+    piece_starts given as a tensor is used as it is (the index slices of
+    a mesh that share a device share one copy)."""
     dev = torch.device(device)
     p4 = arrays.get("genome_p4")
     if p4 is None:
         p4 = pack_genome_4bit(np.asarray(arrays["genome_codes"]))
+    pieces = arrays["piece_starts"]
     state = dict(
         overflow=u32.from_numpy(arrays["overflow"], dev),
-        genome_p4=u32.from_numpy(p4, dev),
-        piece_starts=torch.from_numpy(
-            np.asarray(arrays["piece_starts"]).astype(np.int32)).to(dev),
+        genome_p4=(p4.to(dev) if isinstance(p4, torch.Tensor)
+                   else u32.from_numpy(p4, dev)),
+        piece_starts=(pieces.to(dev) if isinstance(pieces, torch.Tensor)
+                      else torch.from_numpy(
+                          np.asarray(pieces).astype(np.int32)).to(dev)),
         genome_size=int(arrays["genome_size"]))
     if cuckoo is None:
         for k in ("ht_entries", "shard_start", "shard_size"):

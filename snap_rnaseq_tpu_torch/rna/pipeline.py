@@ -15,7 +15,10 @@ Analog of the reference's RNA-mode per-thread loops:
 
 Port of snap_rnaseq_tpu/rna/pipeline.py.  The genome, transcriptome and
 contamination aligners run on one torch device (`device=`, CUDA by
-default; without a card that raises), each batch is copied to it once and
+default; without a card that raises), unless the genome and transcriptome
+aligners are given (`g_aligner=`, `t_aligner=`: the mesh aligners of
+parallel/sharded.py, whose device is their first coordinate's); each
+batch is copied to the aligners' device once and
 each engine's result dict comes back with one grouped copy
 (models/single.py fetch) on the writer thread.  The filter is the same
 per-read host logic over the small candidate sets the device returns, with
@@ -39,7 +42,7 @@ from ..io.writers import make_output_and_builder
 from ..models.paired import PairedAligner
 from ..models.paired_pipeline import PairedPipelineOptions
 from ..models.pipeline import PipelineOptions
-from ..models.single import SingleAligner, fetch
+from ..models.single import SingleAligner, fetch, index_state
 from ..utils.async_stages import OrderedWorker, PrefetchIterator
 from ..utils.stats import AlignerStats, WaitProfile
 from .contamination import ContaminationFilter
@@ -106,15 +109,18 @@ class RnaSingleEndPipeline(_RnaBase):
                  options: PipelineOptions | None = None,
                  contamination_dir: str | None = None,
                  conf_diff: int = DEFAULT_CONF_DIFF, device="cuda",
-                 **aligner_overrides):
+                 g_aligner=None, t_aligner=None, **aligner_overrides):
         super().__init__(genome_dir, transcriptome_dir, annotation,
                          contamination_dir)
         self.opt = options or PipelineOptions()
         self.conf_diff = conf_diff
-        self.g_aligner = SingleAligner(self.genome_index, device=device,
-                                       **aligner_overrides)
-        self.t_aligner = SingleAligner(self.transcriptome_index,
-                                       device=device, **aligner_overrides)
+        # injected aligners let the same pipeline run on a device mesh
+        # (parallel/sharded.py's aligners share align_batch_device's
+        # contract)
+        self.g_aligner = g_aligner or SingleAligner(
+            self.genome_index, device=device, **aligner_overrides)
+        self.t_aligner = t_aligner or SingleAligner(
+            self.transcriptome_index, device=device, **aligner_overrides)
         self.c_aligner = (SingleAligner(self.contamination_index,
                                         device=device)
                           if self.contamination_index else None)
@@ -275,13 +281,13 @@ class RnaPairedEndPipeline(_RnaBase):
                  conf_diff: int = DEFAULT_CONF_DIFF,
                  transcriptome_multi_hits: int = 1000,
                  force_spacing: bool = False, device="cuda",
-                 **aligner_overrides):
+                 g_aligner=None, t_aligner=None, **aligner_overrides):
         super().__init__(genome_dir, transcriptome_dir, annotation,
                          contamination_dir)
         self.opt = options or PairedPipelineOptions()
         self.conf_diff = conf_diff
         self.force_spacing = force_spacing
-        self.g_aligner = PairedAligner(
+        self.g_aligner = g_aligner or PairedAligner(
             self.genome_index, device=device,
             min_spacing=self.opt.min_spacing,
             max_spacing=self.opt.max_spacing, **aligner_overrides)
@@ -296,7 +302,7 @@ class RnaPairedEndPipeline(_RnaBase):
         mh = transcriptome_multi_hits
         t_over.setdefault("cand_per_read", max(128, 2 * mh))
         t_over.setdefault("compact_per_read", max(32, mh))
-        self.t_aligner = SingleAligner(
+        self.t_aligner = t_aligner or SingleAligner(
             self.transcriptome_index, device=device,
             max_hits_to_get=mh, **t_over)
         self.c_aligner = (PairedAligner(self.contamination_index,
@@ -305,9 +311,13 @@ class RnaPairedEndPipeline(_RnaBase):
         if self.c_aligner:
             self.c_filter = ContaminationFilter(self.contamination_index.genome)
         # device-side CharacterizeSeeds over the genome aligner's own index
-        # tensors (rna/filter.py BatchCharacterizer)
-        self._bchar = BatchCharacterizer(self.genome_index,
-                                         self.g_aligner.state)
+        # tensors (rna/filter.py BatchCharacterizer); a mesh aligner holds
+        # only index slices, so the characterizer gets the whole index on
+        # the aligner's device
+        state = getattr(self.g_aligner, "state", None)
+        if state is None:
+            state = index_state(self.genome_index, self.g_aligner.device)
+        self._bchar = BatchCharacterizer(self.genome_index, state)
         self.stats = AlignerStats()
 
     def run(self, fq0: str, fq1: str, out_path: str,

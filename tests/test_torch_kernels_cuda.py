@@ -618,3 +618,38 @@ def test_launch_local_on_card_equals_one_process(card, tmp_path):
         assert w["device"].startswith("cuda") and w["peak_device_bytes"] > 0
         assert w["launches"]["K1_lv_lanes"] > 0
         assert w["launches"]["K2_bitpar_packed"] > 0
+
+
+@pytest.mark.parametrize("kind", ["single", "paired"])
+def test_mesh_on_card_equals_cpu(card, kind):
+    """A (2, 2) index-sharded mesh with every coordinate on the card (K1
+    and K2 once per index shard and end; the paired mesh's mate rescue on
+    K2's rescue form) against the same mesh on the CPU."""
+    from snap_rnaseq_tpu_torch.parallel import sharded
+    from snap_rnaseq_tpu_torch.utils.synth_genome import wgsim_pairs
+    codes = hg_like_genome(300_000, seed=9)
+    index = build_index(genome_from_codes(codes), seed_len=20)
+    r0, q0, r1, q1, _, _ = wgsim_pairs(codes, 256, 100, seed=5)
+    for i in range(0, 256, 8):                     # no exact 20-mer left
+        r1[i, 5::17] = (r1[i, 5::17] + 1) % 4
+    make, args, path = (
+        (sharded.ShardedSingleAligner, (r0, q0 + 33),
+         ("K1_lv_lanes", "K2_bitpar_packed")) if kind == "single" else
+        (sharded.ShardedPairedAligner, (r0, q0 + 33, r1, q1 + 33),
+         ("K1_lv_lanes", "K2_bitpar_packed", "K2_bitpar_rescue")))
+    kernels.reset_launches()
+    got = make(index, sharded.make_mesh(2, 2, device=card)).align_batch(
+        *args)
+    for name in path:
+        assert kernels.LAUNCHES[name] > 0, name
+    # the prefilter once per coordinate and end: 2 x 2 coordinates
+    assert kernels.LAUNCHES["K2_bitpar_packed"] == 4 * (len(args) // 2)
+    want = make(index, sharded.make_mesh(2, 2, device="cpu")).align_batch(
+        *args)
+    assert set(got) == set(want)
+    for k, v in want.items():
+        if v.dtype == np.float32:
+            np.testing.assert_allclose(got[k], v, rtol=1e-5, atol=1e-5,
+                                       err_msg=k)
+        else:
+            np.testing.assert_array_equal(got[k], v, err_msg=k)
