@@ -115,6 +115,27 @@ failure; nothing is caught.
       seconds and bytes per index and n_index, launches and peak device
       bytes per mesh, wall and device-busy ms per batch, each mesh beside
       the single-card engine, and the seconds of each step.
+   j. big locations: the index lifted to offsets A (its
+      middle at 2^31), B (2,200,000,000) and C (the top: genome size +
+      overflow length 1 MiB below the dead marker 0xFFFFFFF0) as
+      tests/test_big_locations.py lifts it (codes, hash values, overflow
+      locations and packed words; at A the cuckoo layout and the packed
+      words are also built by the real functions and held to the lifted
+      ones).  At each offset SingleAligner and PairedAligner on 4 x 1024
+      of 4a's reads and 4b's pairs: every output field equal to the
+      unlifted engines', loc + BASE (mod 2^32); wall and busy ms per
+      batch beside the unlifted engines'; paths single_big and paired_big
+      at C.  At A and B: 4b's pairs through PairedEndPipeline (the bulk
+      route) to plain SAM and -so SAM, byte-identical to 4b's and 4d's;
+      -so BAM (the per-read route) must raise struct.error, the shared
+      fault of ROADMAP.md section 3; DNA single and RNA single (lifted
+      genome, unlifted transcriptome; path rna_big at B) on 4 x 1024 of
+      4a's and 4c's reads, where a record may differ from the unlifted
+      run's only for a read its genome engine placed past 2^31 (counted).
+      At B the card against the CPU on 64 reads and pairs, and a (1, 2)
+      mesh on 2 x 1024 reads against the single-card engine (path
+      mesh_single_big).  Prints the lift, layout, pack and aligner-build
+      seconds, the host and packed genome bytes and the peak device bytes.
    The launch counters are zeroed just before each run and read just
    after; each kernel of that path must have launched.  Prints the rate,
    the aligned share, the share placed at the true origin (checked), the
@@ -128,7 +149,8 @@ failure; nothing is caught.
 5. stringz: the port's tools/stringz at its defaults (-P 100) and at
    -P 150 on the card; K4 must have launched in each.
 6. Path shapes: during each main path's run (4a, 4b, 4c, 4e's `flat`,
-   4g's probe runs, 4h's `distance_hist`, 4i's mesh paths, 5) every
+   4g's probe runs, 4h's `distance_hist`, 4i's mesh paths, 4j's `*_big`
+   paths, 5) every
    call of a kernel wrapper is counted by its argument shapes,
    and the first call of each shape is recorded with a copy of its
    inputs.  Each recorded
@@ -2379,6 +2401,391 @@ def mesh_phase(tmp, idx, batch, n_batches=4, device="cuda"):
     return res, calls
 
 
+# ---------------------------------------------------------------- phase 4j
+
+LIFT_ALIGN = 512                   # BASES_PER_WORD x ROW_WORDS
+BIG_OFFSET_B = 2_200_000_000       # tests/test_big_locations.py's offset
+DEAD_U32 = 0xFFFFFFF0              # expand_phase's dead marker -16 (u32)
+BIG_BATCHES, BIG_MESH_BATCHES, BIG_CPU_ROWS = 4, 2, 64
+
+
+def lift_offsets(genome_size, overflow_len):
+    """A: the genome's middle at 2^31; B: every location past 2^31; C:
+    the top, genome size + overflow length 1 MiB below the dead marker.
+    Each a multiple of 512 bases (whole rows of packed words)."""
+    a = ((1 << 31) - genome_size // 2) // LIFT_ALIGN * LIFT_ALIGN
+    c = (DEAD_U32 - (1 << 20) - genome_size - overflow_len) \
+        // LIFT_ALIGN * LIFT_ALIGN
+    return dict(A=a, B=BIG_OFFSET_B, C=c)
+
+
+def lift_values(vals, base):
+    """Hash values + base, but for the empty and invalid markers."""
+    from snap_rnaseq_tpu_torch.constants import (INVALID_GENOME_LOCATION,
+                                                 UNUSED_HASH_VALUE)
+    v = np.array(vals, np.uint32)
+    lift = (v != np.uint32(INVALID_GENOME_LOCATION)) & \
+        (v != np.uint32(UNUSED_HASH_VALUE))
+    np.add(v, np.uint32(base), out=v, where=lift)
+    return v
+
+
+def overflow_locations(ovf):
+    """Which overflow entries are locations: the array is [count,
+    loc...] runs, whose counts stay when the genome is lifted."""
+    is_loc = np.ones(ovf.size, bool)
+    pos = 0
+    while pos < ovf.size:
+        is_loc[pos] = False
+        pos += 1 + int(ovf[pos])
+    return is_loc
+
+
+def lift_layout(layout, base):
+    """A cuckoo layout with its values lifted: buckets [key x8 | shard x8
+    | val1 x8 | val2 x8], stash rows [key, shard, val1, val2]; an entry
+    is occupied where its shard is not the empty marker."""
+    from snap_rnaseq_tpu_torch.constants import INVALID_GENOME_LOCATION
+    out = {}
+    for k, v in layout.items():
+        v = np.asarray(v, np.uint32).copy()
+        cap = 1 if k == "ck_stash" else 8
+        occ = v[:, cap:2 * cap] != np.uint32(INVALID_GENOME_LOCATION)
+        for c in (2, 3):
+            cols = v[:, c * cap:(c + 1) * cap]
+            cols[occ] = lift_values(cols[occ], base)
+        out[k] = v
+    return out
+
+
+def lift_index(index, base, words, is_loc, layout=None):
+    """`index` with its sequence placed at `base` (tests/test_big_locations
+    .py _lift_index): base padding codes, then the old codes; hash values
+    and overflow locations + base, counts kept; the packed words lifted as
+    whole rows of `words` (the unlifted genome's); with `layout`, the
+    cuckoo layout already lifted (memoized as cuckoo_layout_for does)."""
+    from snap_rnaseq_tpu_torch.index.genome import Genome
+    from snap_rnaseq_tpu_torch.index.hash_index import GenomeIndex
+    from snap_rnaseq_tpu_torch.ops.genome_gather import BASES_PER_WORD
+    g = index.genome
+    old = np.asarray(g.codes)
+    codes = np.full(base + old.size, 5, np.uint8)
+    codes[base:] = old
+    w = np.full(base // BASES_PER_WORD + words.size, 0x55555555, np.uint32)
+    w[base // BASES_PER_WORD:] = words
+    ovf = np.array(index.overflow, np.uint32)
+    ovf[is_loc] += np.uint32(base)
+    lifted = GenomeIndex(
+        genome=Genome(codes=codes, piece_names=list(g.piece_names),
+                      piece_offsets=np.asarray(g.piece_offsets) + base,
+                      padding=g.padding, packed_4bit=w),
+        seed_len=index.seed_len, ht_keys=index.ht_keys,
+        ht_val1=lift_values(index.ht_val1, base),
+        ht_val2=lift_values(index.ht_val2, base),
+        shard_starts=index.shard_starts, overflow=ovf,
+        shard_ovf_starts=index.shard_ovf_starts)
+    if layout is not None:
+        object.__setattr__(lifted, "_cuckoo_layout", layout)
+    return lifted
+
+
+def as_u32(a):
+    """Engine locations (int32 bit patterns) as unsigned values."""
+    return np.asarray(a).astype(np.int32).view(np.uint32).astype(np.int64)
+
+
+def held_lifted(what, got, want, base, loc_keys):
+    """One lifted engine batch against the unlifted engine's: every field
+    equal (log-probabilities within TOL), locations + base (mod 2^32)
+    where their result is mapped."""
+    import torch
+    for k, w in want.items():
+        g, w = np.asarray(got[k]), np.asarray(w)
+        if k in loc_keys:
+            m = np.asarray(want[loc_keys[k]]) != 0
+            if not (np.array_equal(as_u32(g)[m], (as_u32(w)[m] + base)
+                                   % (1 << 32))
+                    and np.array_equal(g[~m], w[~m])):
+                raise AssertionError(f"{what}: {k} is not the unlifted "
+                                     "engine's + BASE")
+        elif w.dtype == np.float32:
+            logp_err(f"{what} {k}", torch.from_numpy(g), torch.from_numpy(w))
+        elif not np.array_equal(g, w):
+            raise AssertionError(f"{what}: {k} differs from the unlifted "
+                                 "engine's")
+
+
+def per_read_gap(what, got, want, outs, keys=("result", "loc")):
+    """Per-read-route records (in read order) against the unlifted run's:
+    each record that differs must belong to a read the lifted engine
+    placed past 2^31 (the int32 location the route reads; ROADMAP.md
+    section 3).  Returns (records unlike, reads placed past 2^31)."""
+    res = np.concatenate([np.asarray(o[keys[0]]) for o in outs])
+    loc = np.concatenate([as_u32(o[keys[1]]) for o in outs])
+    past = (res != 0) & (loc >= 1 << 31)
+    unlike = [i for i, (a, b) in enumerate(zip(got, want)) if a != b]
+    if len(got) != len(want) or not all(past[i] for i in unlike):
+        raise AssertionError(f"{what}: records differ from the unlifted "
+                             "run's for reads placed below 2^31")
+    return len(unlike), int(past.sum())
+
+
+def close_failed_run(exc):
+    """Close the writer thread of a pipeline run that raised `exc`, as the
+    run's own close() would have done: until then it keeps its last drain,
+    and with it the run's aligner, on the card.  The run's frames are the
+    ones below the handler's (reading the handler's locals would pin
+    them)."""
+    import traceback
+    for frame, _ in traceback.walk_tb(exc.__traceback__.tb_next):
+        w = frame.f_locals.get("writer")
+        if hasattr(w, "close"):
+            with contextlib.suppress(type(exc)):
+                w.close()
+
+
+def big_phase(tmp, idx, batch, device="cuda"):
+    """Phase 4j: the 64 Mb index lifted to offsets A, B and C; the
+    engines, the host routes and the mesh there against the unlifted
+    runs (paths single_big and paired_big at C, rna_big and
+    mesh_single_big at B; calls recorded)."""
+    import gc
+    import struct
+    import torch
+    from snap_rnaseq_tpu_torch.cli import _load_index_cached
+    from snap_rnaseq_tpu_torch.index.hash_index import (GenomeIndex,
+                                                        cuckoo_layout_for)
+    from snap_rnaseq_tpu_torch.models.paired import PairedAligner
+    from snap_rnaseq_tpu_torch.models.paired_pipeline import (
+        PairedEndPipeline, PairedPipelineOptions)
+    from snap_rnaseq_tpu_torch.models.pipeline import (PipelineOptions,
+                                                       SingleEndPipeline)
+    from snap_rnaseq_tpu_torch.models.single import SingleAligner, fetch
+    from snap_rnaseq_tpu_torch.ops.genome_gather import pack_genome_4bit
+    from snap_rnaseq_tpu_torch.parallel import sharded
+    from snap_rnaseq_tpu_torch.rna.pipeline import RnaSingleEndPipeline
+    t_phase = time.time()
+    index = _load_index_cached(idx)
+    n = BIG_BATCHES * batch
+    on_dev = lambda b: tuple(a.to(device) for a in b)
+    rfq = os.path.join(tmp, f"reads{READ_LEN}.fq")
+    reads = [on_dev(b) for b in fastq_batches(rfq, n, batch)]
+    fq1, fq2 = (os.path.join(tmp, f"p{READ_LEN}_r{e}.fq") for e in (1, 2))
+    pairs = [on_dev(a + b) for a, b in zip(fastq_batches(fq1, n, batch),
+                                           fastq_batches(fq2, n, batch))]
+    gs = index.genome_size
+    offs = lift_offsets(gs, index.overflow.size)
+    t0 = time.time()
+    words = pack_genome_4bit(np.asarray(index.genome.codes))
+    layout = cuckoo_layout_for(index)
+    is_loc = overflow_locations(np.asarray(index.overflow))
+    res = dict(offsets=offs, genome_size=gs,
+               overflow_len=int(index.overflow.size),
+               prepare_s=time.time() - t0, at={})
+    calls, launches_by = {}, {}
+    engine_times = lambda step, batches: mesh_engine_times(
+        step, batches, batch, device)
+
+    # the unlifted engines, the per-read runs to compare with, and the
+    # transcriptome aligner shared by every RNA run
+    single, paired = (SingleAligner(index, device=device),
+                      PairedAligner(index, device=device))
+    want_s = [fetch(single.align_batch_device(*b)) for b in reads]
+    want_p = [fetch(paired.align_batch_device(*b)) for b in pairs]
+    res["unlifted"] = dict(
+        single=engine_times(lambda b: fetch(single.align_batch_device(*b)),
+                            reads),
+        paired=engine_times(lambda b: fetch(paired.align_batch_device(*b)),
+                            pairs))
+    single_fq = head_fastq(rfq, os.path.join(tmp, "big_reads.fq"), n)
+    single_ref = sam_body(open(os.path.join(tmp, f"out{READ_LEN}.sam"),
+                               "rb").read().splitlines())[:n]
+    rna_fq = head_fastq(os.path.join(tmp, "rna_reads.fq"),
+                        os.path.join(tmp, "big_rna.fq"), n)
+    gtf = os.path.join(tmp, "real.gtf")
+    t_index = GenomeIndex.load(os.path.join(tmp, "tidx"))
+    t_al = SingleAligner(t_index, device=device)
+    opts = PipelineOptions(batch_size=batch)
+
+    def rna_run(g_index, g_al, name):
+        d = os.path.join(tmp, f"big_rna_{name}")
+        os.makedirs(d)
+        out = os.path.join(d, "r.sam")
+        RnaSingleEndPipeline(g_index, t_index, gtf, options=opts,
+                             device=device, g_aligner=g_al,
+                             t_aligner=t_al).run(rna_fq, out)
+        text = {f: [l for l in open(os.path.join(d, f), "rb").read()
+                    .splitlines() if not l.startswith(b"@PG")]
+                for f in sorted(os.listdir(d))}
+        return sam_body(text.pop("r.sam")), text
+    stock, stock_files = rna_run(index, single, "stock")
+    del single, paired
+    res["seconds_to_unlifted"] = time.time() - t_phase
+
+    for name in ("A", "B", "C"):
+        base = offs[name]
+        row = dict(base=base)
+        t0 = time.time()
+        lifted = lift_index(index, base, words, is_loc,
+                            None if name == "A" else lift_layout(layout,
+                                                                 base))
+        row["lift_s"] = time.time() - t0
+        row["host_genome_bytes"] = int(lifted.genome.codes.nbytes)
+        row["packed_genome_bytes"] = int(lifted.genome.packed_4bit.nbytes)
+        if name == "A":
+            # the real functions on the lifted index, once: the layout of
+            # the lifted values and the chunked packer over 2.1e9 bases
+            t0 = time.time()
+            built = cuckoo_layout_for(lifted)
+            row["layout_s"] = time.time() - t0
+            for k, v in lift_layout(layout, base).items():
+                if not np.array_equal(built[k], v):
+                    raise AssertionError(f"A: cuckoo_layout_for {k} is not "
+                                         "the lifted layout")
+            t0 = time.time()
+            if not np.array_equal(pack_genome_4bit(lifted.genome.codes),
+                                  lifted.genome.packed_4bit):
+                raise AssertionError("A: pack_genome_4bit of the lifted "
+                                     "codes is not the lifted words")
+            row["pack_s"] = time.time() - t0
+        if device == "cuda":
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            row["device_bytes_held_before"] = torch.cuda.memory_allocated()
+        t0 = time.time()
+        sal = SingleAligner(lifted, device=device)
+        pal = PairedAligner(lifted, device=device)
+        row["aligners_s"] = time.time() - t0
+        for what, al, batches, want, path, keys in (
+                ("single", sal, reads, want_s, MESH_CORE, {"loc": "result"}),
+                ("paired", pal, pairs, want_p, RESCUE_CORE,
+                 {"loc0": "result0", "loc1": "result1"})):
+            got, launches, c, wall_s, _ = counted_run(
+                lambda: [fetch(al.align_batch_device(*b)) for b in batches],
+                path, f"{what}_big {name}", device)
+            for i, (g, w) in enumerate(zip(got, want)):
+                held_lifted(f"{what} at {name}, batch {i}", g, w, base, keys)
+            if name == "C":
+                calls[f"{what}_big"] = c
+                launches_by[f"{what}_big"] = launches
+            row[what] = dict(launches=launches, wall_s=wall_s,
+                             engine=engine_times(
+                                 lambda b: fetch(al.align_batch_device(*b)),
+                                 batches))
+
+        if name in ("A", "B"):
+            # the bulk route: every pair of 4b to plain SAM, 4d's sorted
+            # SAM; byte for byte the unlifted runs' records
+            for kind, so, ref_name in (("sam", False, f"paired{READ_LEN}.sam"),
+                                       ("so_sam", True, "p.sam")):
+                out = os.path.join(tmp, f"big_{name}_{kind}.sam")
+                _, launches, _, wall_s, _ = counted_run(
+                    lambda: PairedEndPipeline(
+                        lifted, options=PairedPipelineOptions(
+                            batch_size=batch, sorted_output=so),
+                        aligner=pal).run(fq1, fq2, out),
+                    RESCUE_CORE if so else BAM_PATH, f"bulk {kind}", device)
+                got = sam_body(open(out, "rb").read().splitlines())
+                want = sam_body(open(os.path.join(tmp, ref_name), "rb")
+                                .read().splitlines())
+                if got != want:
+                    raise AssertionError(f"{name}: the bulk route's {kind} "
+                                         "differs from the unlifted run's")
+                row[f"bulk_{kind}"] = dict(pairs=len(got) // 2,
+                                           wall_s=wall_s, launches=launches)
+            # the per-read route: -so BAM packs POS as int32 and raises on
+            # a location past 2^31 read as int32 (shared fault)
+            try:
+                PairedEndPipeline(lifted, options=PairedPipelineOptions(
+                    batch_size=batch, sorted_output=True),
+                    aligner=pal).run(fq1, fq2,
+                                     os.path.join(tmp, f"big_{name}.bam"))
+                raise AssertionError(f"{name}: -so BAM ran to its end")
+            except struct.error as e:
+                row["so_bam"] = f"struct.error: {e}"
+                close_failed_run(e)
+            # DNA single and RNA single on the per-read route
+            spy = BatchSpy(sal)
+            out = os.path.join(tmp, f"big_{name}_single.sam")
+            SingleEndPipeline(lifted, options=opts, aligner=sal).run(
+                single_fq, out)
+            spy.stop()
+            got = sam_body(open(out, "rb").read().splitlines())
+            unlike, past = per_read_gap(
+                f"{name}: DNA single", got, single_ref,
+                [fetch(o) for _, o in spy.calls])
+            row["single_per_read"] = dict(records=len(got),
+                                          records_unlike=unlike,
+                                          reads_past_2_31=past)
+            spy = BatchSpy(sal)
+            (got, files), launches, c, wall_s, _ = counted_run(
+                lambda: rna_run(lifted, sal, name), SINGLE_PATH,
+                f"rna_big {name}", device)
+            spy.stop()
+            if name == "B":
+                calls["rna_big"], launches_by["rna_big"] = c, launches
+            order = lambda body: [l.split(b"\t", 1)[0] for l in body]
+            if order(got) != order(stock):
+                raise AssertionError(f"{name}: RNA single's records are "
+                                     "not in the stock run's order")
+            # one record a read: read i's record differs only if the
+            # genome engine placed read i past 2^31
+            unlike, past = per_read_gap(
+                f"{name}: RNA single", got, stock,
+                [fetch(o) for _, o in spy.calls])
+            row["rna_single_per_read"] = dict(
+                records=len(got), records_unlike=unlike,
+                reads_genome_past_2_31=past, wall_s=wall_s,
+                launches=launches,
+                run_file_lines_unlike={
+                    f: sum(a != b for a, b in zip(files[f], stock_files[f]))
+                    + abs(len(files[f]) - len(stock_files[f]))
+                    for f in stock_files})
+
+        if name == "B":
+            # the card against the CPU, and the (1, 2) mesh
+            small = reads[0][0][:BIG_CPU_ROWS], reads[0][1][:BIG_CPU_ROWS]
+            same_tensors("B: single, card / CPU",
+                         sal.align_batch_device(*small),
+                         SingleAligner(lifted, device="cpu")
+                         .align_batch_device(*(a.cpu() for a in small)))
+            small_p = tuple(a[:BIG_CPU_ROWS] for a in pairs[0])
+            same_tensors("B: paired, card / CPU",
+                         pal.align_batch_device(*small_p),
+                         PairedAligner(lifted, device="cpu")
+                         .align_batch_device(*(a.cpu() for a in small_p)))
+            t0 = time.time()
+            mesh = sharded.ShardedSingleAligner(
+                lifted, sharded.make_mesh(1, 2, device=device))
+            row["mesh_build_s"] = time.time() - t0
+            mb = reads[:BIG_MESH_BATCHES]
+            got, launches, c, wall_s, _ = counted_run(
+                lambda: [fetch(mesh.align_batch_device(*b)) for b in mb],
+                MESH_CORE, "mesh_single_big", device)
+            calls["mesh_single_big"] = c
+            launches_by["mesh_single_big"] = launches
+            ref = [fetch(sal.align_batch_device(*b)) for b in mb]
+            gap, _ = engine_gap("mesh_single_big", zip(got, ref),
+                                SINGLE_KEYS, single_causes)
+            row["mesh_1x2"] = dict(launches=launches, wall_s=wall_s,
+                                   batches=gap, engine=engine_times(
+                                       lambda b: fetch(
+                                           mesh.align_batch_device(*b)),
+                                       mb))
+            del mesh
+        if device == "cuda":
+            row["peak_device_bytes"] = torch.cuda.max_memory_allocated()
+        res["at"][name] = row
+        log(f"big {name}: {json.dumps(row)}")
+        spy = None
+        del sal, pal, al, lifted
+        gc.collect()
+        if device == "cuda":
+            torch.cuda.empty_cache()
+    res["phase_s"] = time.time() - t_phase
+    return res, calls, launches_by
+
+
 # ---------------------------------------------------------------- phase 4c
 
 RNA_GENES = 1300
@@ -2871,6 +3278,10 @@ def main():
         mesh, mesh_calls = mesh_phase(tmp, idx, BATCH)
         log("real size, mesh (4i): " + json.dumps(mesh))
         log(f"phase 4i: {time.time() - t0:.1f} s")
+        t0 = time.time()
+        big, big_calls, big_launches = big_phase(tmp, idx, BATCH)
+        log("real size, big locations (4j): " + json.dumps(big))
+        log(f"phase 4j: {time.time() - t0:.1f} s")
     sz = {}
     for name, argv in (("stringz", []),
                        ("stringz150", ["-P", str(LONG_READ_LEN)])):
@@ -2887,13 +3298,14 @@ def main():
                    **{name: v[1] for name, v in sz.items()},
                    **{name: r["launches"] for name, r in rna.items()},
                    **{name: probe[name]["launches"] for name in probe_calls},
-                   **{name: r["launches"] for name, r in mesh["meshes"].items()})
+                   **{name: r["launches"]
+                      for name, r in mesh["meshes"].items()}, **big_launches)
     at_path = {p: check_path_calls(p, c) for p, c in (
         ("single", single_calls), ("paired", paired_calls),
         ("single150", single150_calls), ("paired150", paired150_calls),
         ("flat", flat_calls), ("distance_hist", dhist_calls),
         *((name, v[2]) for name, v in sz.items()), *rna_calls.items(),
-        *probe_calls.items(), *mesh_calls.items())}
+        *probe_calls.items(), *mesh_calls.items(), *big_calls.items())}
     k3_warp_sweep(single_calls)
     k5_vs_k1(rna_calls["rna_single_onehot"])
     log(f"total: {time.time() - t_start:.1f} s")

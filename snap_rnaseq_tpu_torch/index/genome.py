@@ -35,6 +35,9 @@ class Genome:
     piece_names: list[str]                  # chromosome names
     piece_offsets: np.ndarray               # int64[n_pieces], start of each piece
     padding: int = DEFAULT_CHROMOSOME_PADDING
+    # the codes packed 4 bits a base (ops/genome_gather.py pack_genome_4bit)
+    # when they are made apart from the codes; None: packed from the codes
+    packed_4bit: np.ndarray | None = field(default=None, repr=False)
     _name_to_index: dict = field(default_factory=dict, repr=False)
 
     def __post_init__(self):

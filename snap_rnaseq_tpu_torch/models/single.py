@@ -46,7 +46,8 @@ from ..index.hash_index import GenomeIndex, cuckoo_layout_for
 from ..ops import lookup as lk
 from ..ops import u32
 from ..ops.bitpar import bitpar_distance, bitpar_distance_words
-from ..ops.genome_gather import gather_windows, pack_genome_4bit
+from ..ops.genome_gather import (gather_windows, genome_words,
+                                 pack_genome_4bit)
 from ..ops.lv import NEG_INF, lv_distance, phred_log_prob_device
 from ..ops.rowscan import seg_broadcast
 from ..utils.seed_sequencer import seed_position_schedule
@@ -157,6 +158,7 @@ def index_state(index: GenomeIndex, device) -> dict:
     lookup: "cuckoo" (the default) ships the bucket layout, anything else
     the probe-chain table, and builds no layout."""
     arrays = index.device_arrays()
+    arrays["genome_p4"] = genome_words(index.genome)
     arrays["piece_starts"] = index.genome.piece_offsets
     use_cuckoo = os.environ.get("SNAP_TPU_LOOKUP", "cuckoo") == "cuckoo"
     return index_state_from_numpy(

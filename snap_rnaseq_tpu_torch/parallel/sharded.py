@@ -46,7 +46,7 @@ from ..constants import INVALID_GENOME_LOCATION, UNUSED_HASH_VALUE
 from ..index.hash_index import GenomeIndex, build_cuckoo_layout
 from ..models import single as sg
 from ..ops import u32
-from ..ops.genome_gather import pack_genome_4bit
+from ..ops.genome_gather import genome_words
 from ..ops.lv import phred_log_prob_device
 from ..utils.seed_sequencer import seed_position_schedule
 
@@ -299,7 +299,7 @@ class _ShardedBase:
         self._use_cuckoo = _use_cuckoo_lookup()
         parts = partition_index(index, self.n_idx, self._use_cuckoo)
         tables = _TABLE_KEYS[self._use_cuckoo]
-        p4 = pack_genome_4bit(np.ascontiguousarray(index.genome.codes))
+        p4 = genome_words(index.genome)
         pieces = index.genome.piece_offsets.astype(np.int32)
         # the replicated tensors once per distinct device, each index slice
         # once per distinct device that holds one of its coordinates

@@ -58,11 +58,18 @@ def _output_prefix(out_path: str) -> str:
     return os.path.join(os.path.dirname(out_path) or ".", stem)
 
 
+def _index(where) -> GenomeIndex:
+    """An index, or the directory it loads from."""
+    return where if isinstance(where, GenomeIndex) else \
+        GenomeIndex.load(where)
+
+
 class _RnaBase:
-    def __init__(self, genome_dir: str, transcriptome_dir: str,
-                 annotation: str, contamination_dir: str | None = None):
-        self.genome_index = GenomeIndex.load(genome_dir)
-        self.transcriptome_index = GenomeIndex.load(transcriptome_dir)
+    def __init__(self, genome_dir, transcriptome_dir, annotation: str,
+                 contamination_dir: str | None = None):
+        # genome_dir / transcriptome_dir: a directory or a GenomeIndex
+        self.genome_index = _index(genome_dir)
+        self.transcriptome_index = _index(transcriptome_dir)
         self.gtf = GTFReader.load(annotation)
         self.contamination_index = (GenomeIndex.load(contamination_dir)
                                     if contamination_dir else None)

@@ -653,3 +653,79 @@ def test_mesh_on_card_equals_cpu(card, kind):
                                        err_msg=k)
         else:
             np.testing.assert_array_equal(got[k], v, err_msg=k)
+
+
+def _lift(index, base):
+    """`index` with its sequence placed at `base` (a multiple of 512 bases;
+    tests/test_torch_big_genome.py lift_index): hash values and overflow
+    locations + base, the packed words lifted by whole rows."""
+    from snap_rnaseq_tpu_torch.constants import (INVALID_GENOME_LOCATION,
+                                                 UNUSED_HASH_VALUE)
+    from snap_rnaseq_tpu_torch.index.genome import Genome
+    from snap_rnaseq_tpu_torch.index.hash_index import GenomeIndex
+
+    def values(v):
+        v = np.asarray(v, np.uint32).copy()
+        keep = (v == np.uint32(INVALID_GENOME_LOCATION)) | \
+            (v == np.uint32(UNUSED_HASH_VALUE))
+        v[~keep] += np.uint32(base)
+        return v
+    g, ovf = index.genome, np.asarray(index.overflow, np.uint32).copy()
+    pos = 0
+    while pos < ovf.size:
+        ovf[pos + 1:pos + 1 + int(ovf[pos])] += np.uint32(base)
+        pos += 1 + int(ovf[pos])
+    p4 = pack_genome_4bit(np.asarray(g.codes))
+    words = np.full(base // 8 + p4.size, 0x55555555, np.uint32)
+    words[base // 8:] = p4
+    codes = np.zeros(base + g.codes.size, np.uint8)   # zero pages, unread
+    codes[base:] = g.codes
+    return GenomeIndex(
+        genome=Genome(codes=codes, piece_names=list(g.piece_names),
+                      piece_offsets=g.piece_offsets + base, padding=g.padding,
+                      packed_4bit=words),
+        seed_len=index.seed_len, ht_keys=index.ht_keys,
+        ht_val1=values(index.ht_val1), ht_val2=values(index.ht_val2),
+        shard_starts=index.shard_starts, overflow=ovf,
+        shard_ovf_starts=index.shard_ovf_starts)
+
+
+@pytest.mark.parametrize("kind", ["single", "paired"])
+def test_aligners_at_big_locations_on_card_equal_cpu(card, kind):
+    """Both aligners on a 300 kb genome lifted so that its middle sits at
+    2^31 (offset A; one batch holds locations of both int32 signs): the
+    card's outputs equal the CPU's on the same lifted index, and the
+    unlifted engine's with loc + BASE."""
+    from snap_rnaseq_tpu_torch.models.paired import PairedAligner
+    from snap_rnaseq_tpu_torch.utils.synth_genome import wgsim_pairs
+    codes = hg_like_genome(300_000, seed=12)
+    index = build_index(genome_from_codes(codes), seed_len=20)
+    base = ((1 << 31) - index.genome_size // 2) // 512 * 512
+    lifted = _lift(index, base)
+    r0, q0, r1, q1, _, _ = wgsim_pairs(codes, 256, 100, seed=6)
+    for i in range(0, 256, 8):                     # no exact 20-mer left
+        r1[i, 5::17] = (r1[i, 5::17] + 1) % 4
+    make, args, locs = (
+        (SingleAligner, (r0, q0), {"loc": "result"}) if kind == "single"
+        else (PairedAligner, (r0, q0, r1, q1),
+              {"loc0": "result0", "loc1": "result1"}))
+    kernels.reset_launches()
+    got = make(lifted, device=card).align_batch(*args)
+    assert kernels.LAUNCHES["K1_lv_lanes"] > 0
+    assert kernels.LAUNCHES["K2_bitpar_packed"] > 0
+    want = make(lifted, device="cpu").align_batch(*args)
+    unlifted = make(index, device="cpu").align_batch(*args)
+    for k, v in want.items():
+        if v.dtype == np.float32:
+            np.testing.assert_allclose(got[k], v, rtol=1e-5, atol=1e-5,
+                                       err_msg=k)
+        else:
+            np.testing.assert_array_equal(got[k], v, err_msg=k)
+        if k in locs:
+            m = unlifted[locs[k]] != 0
+            u = got[k].astype(np.int32).view(np.uint32).astype(np.int64)
+            np.testing.assert_array_equal(
+                u[m], unlifted[k][m].astype(np.int64) + base)
+            assert (u[m] < 1 << 31).any() and (u[m] >= 1 << 31).any()
+        elif v.dtype != np.float32:
+            np.testing.assert_array_equal(got[k], unlifted[k], err_msg=k)
