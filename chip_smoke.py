@@ -37,7 +37,9 @@ failure; nothing is caught.
    tests/golden/rna_single_100bp.sam (without @PG) byte for byte; the RNA
    one twice, under SNAP_TPU_LV_LANES=bits (K1 launches, K5 does not) and
    =onehot (K5 launches, K1 does not).
-4. Real size: `index` on a 64 Mb hg-like genome, then on that one index
+4. Real size: `index` on a 64 Mb hg-like genome, built on the card and
+   again with --device cpu (every file byte-identical), then on that one
+   index
    a. `single -bs 1024` on 16 batches of simulated 100 bp reads
       (substitutions, indels, both strands);
    b. `paired -bs 1024` on 16 batches of 1024 simulated pairs (insert
@@ -47,7 +49,8 @@ failure; nothing is caught.
       runs);
    c. RNA: an annotation made from the seed at the human annotation's
       gene density (about 1,300 genes, 4 isoforms each, 3-12 exons of
-      80-400 bp), its transcriptome built by `transcriptome`, then RNA
+      80-400 bp), its transcriptome built by `transcriptome` on the card
+      and with --device cpu (every file byte-identical), then RNA
       `single -bs 1024` on 16 batches of reads (80% cut from transcripts,
       20% genomic) and RNA `paired -bs 1024` on 16 batches of 1024 pairs
       from transcript fragments of 200-400 bases at the default -tmh
@@ -136,6 +139,20 @@ failure; nothing is caught.
       mesh on 2 x 1024 reads against the single-card engine (path
       mesh_single_big).  Prints the lift, layout, pack and aligner-build
       seconds, the host and packed genome bytes and the peak device bytes.
+   k. human size (tools/hg_scale.py, after 4j): the 3,200,012,492-base,
+      24-piece genome of the JAX package's tools/hg_scale_build.py made
+      by worker processes (on a thread from phase 2 on, beside the card's
+      checks), its seed-20 index built on the card straight
+      into 8 slices (total_slots, occupied_slots, overflow_entries,
+      ht_bytes and overflow_bytes must equal HG_SCALE.json's), the lookup
+      check on 20,000 sampled positions (each among its seed's hits, the
+      lists descending; the seeds past the engine's 64-probe cap
+      counted), then 100,000 wgsim pairs in batches of 256 through
+      ShardedPairedAligner on a (1, 8) mesh on the card (path `hg`;
+      recall0 and recall1 >= 0.97, pair_found_rate >= 0.99), its
+      statistics beside HG_ALIGN.json's with the counts more than 0.5%
+      apart listed, one batch's wall and busy ms, the peak device bytes
+      (under the card's memory) and the peak host RSS.
    The launch counters are zeroed just before each run and read just
    after; each kernel of that path must have launched.  Prints the rate,
    the aligned share, the share placed at the true origin (checked), the
@@ -150,12 +167,13 @@ failure; nothing is caught.
    -P 150 on the card; K4 must have launched in each.
 6. Path shapes: during each main path's run (4a, 4b, 4c, 4e's `flat`,
    4g's probe runs, 4h's `distance_hist`, 4i's mesh paths, 4j's `*_big`
-   paths, 5) every
+   paths, 4k's `hg`, 5) every
    call of a kernel wrapper is counted by its argument shapes,
    and the first call of each shape is recorded with a copy of its
    inputs.  Each recorded
    call is re-run on those inputs against the plain version (same
-   tolerances) and both are timed with CUDA events; the bound is computed
+   tolerances) and both are timed with CUDA events (the kernel over 20
+   calls, the plain version over the one call checked); the bound is computed
    from the same inputs.  K3's levels per row are printed per path; K3 is
    re-timed at the single path's calls with 1, 2, 4 and 8 warps per block
    forced; K5's calls on RNA single under onehot are re-run by K5 and by
@@ -219,6 +237,19 @@ def time_ms(fn, reps):
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def timed_once(fn):
+    """(milliseconds, result) of one call on the card (CUDA events)."""
+    import torch
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    out = fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end), out
 
 
 def device_ms(fn, reps):
@@ -847,13 +878,14 @@ def check_path_calls(path, calls):
         kernel = rec["kernel"]
         a = on_card(rec)
         plain, compare, work = _plain_and_work(kernel, a)
-        want = plain()
+        # one timed run: the plain versions take 10-1,000 ms a call, and
+        # the phase re-runs every recorded shape of every path
+        plain_ms, want = timed_once(plain)
         if kernel == "K3_lv_cigar":
             k3_levels.append(lv_levels(want, a["k"], a["e_max"]))
         err = compare(rec["fn"](**a), want)
         ms = time_ms(lambda: rec["fn"](**a), 20)
         dev_ms = device_ms(lambda: rec["fn"](**a), 20)
-        plain_ms = time_ms(plain, 3)
         b_ms, b_by = bound(*work(want))
         shape = call_shape(a)
         log(f"{path} {kernel} {shape} x{rec['n']}: kernel {ms:.4f} ms "
@@ -1203,9 +1235,31 @@ PAIRED_PATH = SINGLE_PATH + ("K2_bitpar_rescue",)
 STRINGZ_PATH = ("K4_bitpar_rows",)
 
 
+def same_build_on_cpu(argv, card_dir):
+    """`argv` (an `index` or `transcriptome` command without its output
+    directory) again with --device cpu: every file it writes must equal
+    the card build's in `card_dir` byte for byte.  Returns its seconds."""
+    cpu_dir = card_dir + "_cpu"
+    t0 = time.time()
+    run_cli([*argv, cpu_dir, "--device", "cpu"])
+    cpu_s = time.time() - t0
+    names = sorted(os.listdir(card_dir))
+    if sorted(os.listdir(cpu_dir)) != names:
+        raise AssertionError(f"{argv[0]}: card files {names}, cpu files "
+                             f"{sorted(os.listdir(cpu_dir))}")
+    for n in names:
+        with open(os.path.join(card_dir, n), "rb") as a, \
+                open(os.path.join(cpu_dir, n), "rb") as b:
+            if a.read() != b.read():
+                raise AssertionError(f"{argv[0]}: {n} differs between the "
+                                     "card and --device cpu builds")
+    return cpu_s
+
+
 def real_index(tmp, n_bases):
     """The 64 Mb hg-like genome and its index, built once through the CLI
-    for both real-size runs."""
+    on the card for both real-size runs, and again with --device cpu (the
+    same files)."""
     from snap_rnaseq_tpu_torch.utils.synth_genome import hg_like_genome
     codes = hg_like_genome(n_bases, seed=0)
     fa = os.path.join(tmp, "hg_like.fa")
@@ -1214,7 +1268,9 @@ def real_index(tmp, n_bases):
     t0 = time.time()
     run_cli(["index", fa, idx])
     index_s = time.time() - t0
-    log(f"index: {n_bases} bases in {index_s:.3f} s")
+    cpu_s = same_build_on_cpu(["index", fa], idx)
+    log(f"index: {n_bases} bases in {index_s:.3f} s on the card, "
+        f"{cpu_s:.3f} s with --device cpu (files byte-identical)")
     return codes, idx, index_s
 
 
@@ -1898,9 +1954,10 @@ def head_fastq(src, dst, n):
 
 def longest_chain(aligner, reads):
     """The probe-chain lookup of one batch's seeds as one straggler
-    block: (probes of its longest chain, lanes left after the unrolled
-    rounds).  The gathers are counted; one block makes their number the
-    longest chain's probes (results do not depend on the block size)."""
+    block walked one probe a window: (probes of its longest chain, lanes
+    left after the unrolled rounds).  The gathers are counted; one block
+    of one-probe windows makes their number the longest chain's probes
+    (results do not depend on the block size or the window)."""
     from snap_rnaseq_tpu_torch.ops import lookup as lk
     st = aligner.state
     positions, _ = aligner.schedule_for(reads.shape[1])
@@ -1910,12 +1967,13 @@ def longest_chain(aligner, reads):
     def counted(ht, base, idx, key):
         sizes.append(idx.numel())
         return real(ht, base, idx, key)
-    lk._probe = counted
+    lk._probe, window = counted, lk.PROBE_WINDOW
+    lk.PROBE_WINDOW = 1
     try:
         lk.lookup_seeds(packed, st["ht_entries"], st["shard_start"],
                         st["shard_size"], rem=packed["valid"].numel())
     finally:
-        lk._probe = real
+        lk._probe, lk.PROBE_WINDOW = real, window
     return len(sizes), (sizes[1 + lk.UNROLLED]
                         if len(sizes) > 1 + lk.UNROLLED else 0)
 
@@ -2786,6 +2844,121 @@ def big_phase(tmp, idx, batch, device="cuda"):
     return res, calls, launches_by
 
 
+# ---------------------------------------------------------------- phase 4k
+
+# HG_SCALE.json's table counts, which depend on the genome, the seed length
+# and the load factor alone: the card's build must give them exactly
+HG_EXACT = ("total_slots", "occupied_slots", "overflow_entries", "ht_bytes",
+            "overflow_bytes")
+HG_FLOORS = dict(recall0=0.97, recall1=0.97, pair_found_rate=0.99)
+HG_COUNTS = ("pos0_ok", "pos1_ok", "pair_found", "both_pos_ok",
+             "truncated0", "truncated1", "mapq_ge10_ok", "mapq_ge10")
+HG_PATH = ("K1_lv_lanes", "K2_bitpar_packed", "K2_bitpar_rescue")
+
+
+def hg_genome(t_start):
+    """A future of phase 4k's genome and its seconds, started when phase 2
+    starts: 24 pieces made by worker processes on half the host's cores,
+    so that the host-clock numbers of the phases it overlaps keep the
+    other half; it logs when it ends, in seconds into the script."""
+    from concurrent.futures import ThreadPoolExecutor
+    from snap_rnaseq_tpu_torch.tools import hg_scale as hs
+
+    def timed():
+        t0 = time.time()
+        genome = hs.synth_genome(
+            workers=max(1, (os.cpu_count() or 2) // 2), log=None)
+        done = time.time()
+        log(f"hg genome made in {done - t0:.1f} s, {done - t_start:.1f} s "
+            "into the script")
+        return genome, done - t0
+    pool = ThreadPoolExecutor(1)
+    future = pool.submit(timed)
+    pool.shutdown(wait=False)         # its one task still runs to its end
+    return future
+
+
+def hg_phase(genome_future, device="cuda"):
+    """Phase 4k: tools/hg_scale.py at full size on the card.  The
+    3,200,012,492-base genome (24 pieces, made by hg_genome), its seed-20
+    index built on the card into 8 slices, held to HG_SCALE.json's table
+    counts exactly; the
+    lookup check (every sampled position among its seed's hits, the lists
+    descending); 100,000 wgsim pairs through ShardedPairedAligner on a
+    (1, 8) mesh on this card (path `hg`, counters zeroed just before and
+    read just after, calls recorded), the statistics beside
+    HG_ALIGN.json's, with recall and pair-rate floors; one batch's wall
+    and busy ms; peak device bytes (build and align) under the card's
+    memory; peak host RSS."""
+    import gc
+    import itertools
+    import torch
+    from snap_rnaseq_tpu_torch.tools import hg_scale as hs
+    gc.collect()
+    torch.cuda.empty_cache()
+    t_phase = time.time()
+    res = {}
+    with open(os.path.join(ROOT, "HG_SCALE.json")) as f:
+        hg_scale = json.load(f)
+    with open(os.path.join(ROOT, "HG_ALIGN.json")) as f:
+        hg_align = json.load(f)
+    t0 = time.time()
+    genome, res["synth_s"] = genome_future.result()
+    res["synth_wait_s"] = time.time() - t0
+    log(f"hg: {genome.num_bases:,} bases in {res['synth_s']:.1f} s (made "
+        f"beside phases 2-4j; {res['synth_wait_s']:.1f} s waited here)")
+    with hs.PeakRSS() as rss:
+        di, build = hs.build(genome, device, log=log)
+        res["build"] = build
+        log("hg build: " + json.dumps(build))
+        res["hg_scale_json"] = {k: hg_scale[k] for k in (
+            *HG_EXACT, "synth_s", "build_s", "build_bases_per_s", "host")}
+        off = {k: [build[k], hg_scale[k]] for k in HG_EXACT
+               if build[k] != hg_scale[k]}
+        if off:
+            raise AssertionError(f"hg tables unlike HG_SCALE.json: {off}")
+        res["check"] = check = hs.check(di, log=log)
+        if check["missing"] or not check["overflow_descending"]:
+            raise AssertionError(f"hg lookup check failed: {check}")
+        t0 = time.time()
+        aligner = hs.make_aligner(di, device)
+        res["aligner_s"] = time.time() - t0
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated()   # build, check, aligner
+        stats, launches, calls, res["align_run_s"], align_peak = counted_run(
+            lambda: hs.align(aligner, genome, log=log), HG_PATH, "hg")
+        res["align"] = stats
+        res["launches"] = launches
+        res["vs_hg_align_json"] = side = {
+            k: [stats[k], hg_align[k]] for k in hg_align
+            if k in stats and isinstance(hg_align[k], (int, float))}
+        res["counts_apart_over_half_percent"] = {
+            k: side[k] for k in HG_COUNTS
+            if abs(side[k][0] - side[k][1]) > 0.005 * abs(side[k][1])}
+        low = {k: stats[k] for k, v in HG_FLOORS.items() if stats[k] < v}
+        if low:
+            raise AssertionError(f"hg align under its floors {HG_FLOORS}: "
+                                 f"{low}")
+        batches = [b[1] for b in itertools.islice(
+            hs.pair_batches(genome, hs.BATCH * 5), 5)]
+        res["engine"] = engine_phase(lambda b: aligner.align_batch(*b),
+                                     batches, hs.BATCH, n_warm=1, n_timed=2)
+        peak = max(peak, align_peak, torch.cuda.max_memory_allocated())
+    res["peak_device_bytes"] = peak
+    res["peak_device_reserved_bytes"] = torch.cuda.max_memory_reserved()
+    res["device_memory_bytes"] = torch.cuda.get_device_properties(
+        0).total_memory
+    if peak >= res["device_memory_bytes"]:
+        raise AssertionError(f"hg peak device bytes {peak} past the card's "
+                             f"{res['device_memory_bytes']}")
+    res["peak_host_rss_bytes"] = rss.peak
+    del aligner, di, genome, batches
+    gc.collect()
+    torch.cuda.empty_cache()
+    res["phase_s"] = time.time() - t_phase
+    return res, calls
+
+
 # ---------------------------------------------------------------- phase 4c
 
 RNA_GENES = 1300
@@ -2904,11 +3077,14 @@ def rna_real_phase(tmp, codes, idx, index_s, n_reads, n_pairs, batch):
     write_gtf(gtf, transcripts)
     tidx = os.path.join(tmp, "tidx")
     t0 = time.time()
-    run_cli(["transcriptome", gtf, os.path.join(tmp, "hg_like.fa"), tidx])
+    argv = ["transcriptome", gtf, os.path.join(tmp, "hg_like.fa")]
+    run_cli([*argv, tidx])
     tx_s = time.time() - t0
+    cpu_s = same_build_on_cpu(argv, tidx)
     tx = spliced(codes, transcripts)
     log(f"transcriptome: {len(transcripts)} transcripts, "
-        f"{sum(t[0].size for t in tx)} bases in {tx_s:.3f} s")
+        f"{sum(t[0].size for t in tx)} bases in {tx_s:.3f} s on the card, "
+        f"{cpu_s:.3f} s with --device cpu (files byte-identical)")
 
     reads = rna_single_reads(codes, tx, n_reads, rng)
     fq = os.path.join(tmp, "rna_reads.fq")
@@ -3198,6 +3374,10 @@ def kernel_entry(name, source, replaces, by_path, at_path):
 # ---------------------------------------------------------------- main
 
 def main():
+    # the allocator grows segments in place (phase 4k frees and allocates
+    # tens of GB in blocks of different sizes); set before CUDA starts
+    os.environ.setdefault("PYTORCH_CUDA_ALLOC_CONF",
+                          "expandable_segments:True")
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda is not available; this run needs an "
@@ -3221,6 +3401,7 @@ def main():
     log(f"peaks: {HBM_BYTES_PER_S:.4g} B/s HBM, {int32_ops_per_s():.4g} "
         "int32 op/s")
 
+    hg_future = hg_genome(t_start)    # 4k's genome, made meanwhile
     rng = np.random.default_rng(7)
     checks = [check_k1(dev, rng), check_k1_rescue(dev, rng),
               check_k2(dev, rng), check_k2_rescue(dev, rng),
@@ -3230,18 +3411,27 @@ def main():
         log(f"{c['name']}: {c['rows']} rows match the plain version, "
             f"max_abs_err {c['max_abs_err']}")
 
+    log(f"phases 1-2: {time.time() - t_start:.1f} s")
     with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.time()
         n_single, n_paired, n_rna = golden_phase(tmp)
         log(f"golden: {n_single} single, {n_paired} paired and "
             f"{n_rna['bits']} / {n_rna['onehot']} RNA single (K1 / K5) SAM "
             "lines identical on the card")
+        log(f"phase 3: {time.time() - t0:.1f} s")
+        t0 = time.time()
         codes, idx, index_s = real_index(tmp, GENOME_BASES)
+        log(f"phase 4 index: {time.time() - t0:.1f} s ({t0 - t_start:.1f} "
+            f"to {time.time() - t_start:.1f} s into the script)")
+        t0 = time.time()
         single, single_calls = single_real_phase(
             tmp, codes, idx, index_s, N_BATCHES * BATCH, BATCH)
         log("real size, single: " + json.dumps(single))
         paired, paired_calls = paired_real_phase(
             tmp, codes, idx, index_s, N_BATCHES * BATCH, BATCH)
         log("real size, paired: " + json.dumps(paired))
+        log(f"phases 4a, 4b: {time.time() - t0:.1f} s")
+        t0 = time.time()
         single150, single150_calls = single_real_phase(
             tmp, codes, idx, index_s, N_BATCHES_LONG * BATCH, BATCH,
             LONG_READ_LEN, engine=False)
@@ -3250,11 +3440,14 @@ def main():
             tmp, codes, idx, index_s, N_BATCHES_LONG * BATCH, BATCH,
             LONG_READ_LEN, engine=False)
         log("real size, paired150: " + json.dumps(paired150))
+        log(f"phases 4a', 4b': {time.time() - t0:.1f} s")
+        t0 = time.time()
         rna, rna_calls = rna_real_phase(tmp, codes, idx, index_s,
                                         N_BATCHES * BATCH, N_BATCHES * BATCH,
                                         BATCH)
         for name, r in rna.items():
             log(f"real size, {name}: " + json.dumps(r))
+        log(f"phase 4c: {time.time() - t0:.1f} s")
         t0 = time.time()
         formats = formats_phase(tmp, idx, paired, rna, BATCH)
         log("real size, formats (4d): " + json.dumps(formats))
@@ -3282,6 +3475,11 @@ def main():
         big, big_calls, big_launches = big_phase(tmp, idx, BATCH)
         log("real size, big locations (4j): " + json.dumps(big))
         log(f"phase 4j: {time.time() - t0:.1f} s")
+    hg, hg_calls = hg_phase(hg_future)
+    del hg_future                     # the genome's 3.2 GB
+    log("human size (4k): " + json.dumps(hg))
+    log(f"phase 4k: {hg['phase_s']:.1f} s")
+    t0 = time.time()
     sz = {}
     for name, argv in (("stringz", []),
                        ("stringz150", ["-P", str(LONG_READ_LEN)])):
@@ -3289,6 +3487,8 @@ def main():
         for line in lines:
             log(f"{name}: {line}")
         log(f"{name} launches: {json.dumps(launches)}")
+    log(f"phase 5: {time.time() - t0:.1f} s")
+    t0 = time.time()
 
     # phase 6: every kernel call shape of each main path, on its inputs
     by_path = dict(single=single["launches"], paired=paired["launches"],
@@ -3299,15 +3499,18 @@ def main():
                    **{name: r["launches"] for name, r in rna.items()},
                    **{name: probe[name]["launches"] for name in probe_calls},
                    **{name: r["launches"]
-                      for name, r in mesh["meshes"].items()}, **big_launches)
+                      for name, r in mesh["meshes"].items()}, **big_launches,
+                   hg=hg["launches"])
     at_path = {p: check_path_calls(p, c) for p, c in (
         ("single", single_calls), ("paired", paired_calls),
         ("single150", single150_calls), ("paired150", paired150_calls),
         ("flat", flat_calls), ("distance_hist", dhist_calls),
         *((name, v[2]) for name, v in sz.items()), *rna_calls.items(),
-        *probe_calls.items(), *mesh_calls.items(), *big_calls.items())}
+        *probe_calls.items(), *mesh_calls.items(), *big_calls.items(),
+        ("hg", hg_calls))}
     k3_warp_sweep(single_calls)
     k5_vs_k1(rna_calls["rna_single_onehot"])
+    log(f"phase 6: {time.time() - t0:.1f} s")
     log(f"total: {time.time() - t_start:.1f} s")
 
     kernels = [kernel_entry(name, source, replaces, by_path, at_path)

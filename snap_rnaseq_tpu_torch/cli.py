@@ -4,7 +4,9 @@ Port of snap_rnaseq_tpu/cli.py (reference apps/snap/Main.cpp:42-86 +
 AlignerOptions.cpp), with the subcommands this port carries:
 
   index         <ref.fa> <index-dir> [-s seedLen] [-lf loadFactor]
+                [-chunked] [--device cuda|cpu]
   transcriptome <annotation.gtf> <ref.fa> <index-dir> [-s seedLen]
+                [--device cuda|cpu]
   single        <genome-dir> [<transcriptome-dir> <annotation>] <input>...
                 -o out [-so] [-S id] [-ct contamination-dir]
                 [--device cuda|cpu]
@@ -29,18 +31,22 @@ reference (AlignerOptions.cpp:94-165); -d and -h accept `n1:s:n2` ranges
 (Range.h:29-56) and runs chain with a `,` argument (Main.cpp:63-80).
 
 The engine runs on `--device`, CUDA by default; without a card that
-raises rather than falling back.  SNAP_TPU_LV_LANES=onehot sends the LV
-scoring to the second LV-lanes kernel (ops/lv.py); SNAP_TPU_LOOKUP=probe
-looks seeds up in the probe-chain table instead of the cuckoo layout
-(ops/lookup.py).  `trace` prints one read's pass through the flat phases
-(models/trace.py).  `--hosts N` splits a DNA run's plain FASTQ input into
-N byte ranges aligned by N processes on `--device` (parallel/multihost.py):
+raises rather than falling back.  `index` and `transcriptome` build their
+tables there too (index/hash_index.py build_index_device: the JAX
+package's bytes, built by torch code on the device).
+SNAP_TPU_LV_LANES=onehot sends the LV scoring to the second LV-lanes
+kernel (ops/lv.py); SNAP_TPU_LOOKUP=probe looks seeds up in the
+probe-chain table instead of the cuckoo layout (ops/lookup.py).
+`trace` prints one read's pass through the flat phases (models/trace.py).
+`--hosts N` splits a DNA run's plain FASTQ input into N byte ranges
+aligned by N processes on `--device` (parallel/multihost.py):
 alone it spawns N local workers, with `--host-id` it runs one host of a
 fleet (`--coordinator` is rank 0's gloo address).  As in the JAX package,
 only the batch size and -so reach the workers.
 
     python -m snap_rnaseq_tpu_torch.cli index ref.fa idx
     python -m snap_rnaseq_tpu_torch.cli transcriptome anno.gtf ref.fa tidx
+    python -m snap_rnaseq_tpu_torch.cli index ref.fa idx --device cpu
     python -m snap_rnaseq_tpu_torch.cli single idx reads.fq -o out.sam
     python -m snap_rnaseq_tpu_torch.cli single idx tidx anno.gtf reads.fq \
         -o rna.sam
@@ -179,6 +185,12 @@ def _sweep(a):
     return list(itertools.product(hits.values(), dist.values()))
 
 
+def _add_build_device(p: argparse.ArgumentParser):
+    p.add_argument("--device", dest="device", default="cuda",
+                   help="torch device the index is built on (default cuda; "
+                        "cpu runs the same torch code on the host)")
+
+
 def cmd_index(argv):
     p = argparse.ArgumentParser(prog="snap-rna index", add_help=True)
     p.add_argument("fasta")
@@ -188,18 +200,22 @@ def cmd_index(argv):
     p.add_argument("-hg19", action="store_true",
                    help="accepted for reference compatibility")
     p.add_argument("-chunked", action="store_true",
-                   help="memory-bounded build (bit-identical output)")
+                   help="smaller build budgets (less device memory, more "
+                        "passes; the same bytes)")
+    _add_build_device(p)
     a = p.parse_args(argv)
     from .index.genome import read_fasta_genome
-    from .index.hash_index import build_index, build_index_chunked
+    from .index.hash_index import build_index_device
+    from .models.single import resolve_device
+    dev = resolve_device(a.device)
     t0 = time.time()
     genome = read_fasta_genome(a.fasta)
-    builder = build_index_chunked if a.chunked else build_index
-    idx = builder(genome, a.seed_len, load_factor=a.load_factor, verbose=True)
-    idx.save(a.directory)
+    idx = build_index_device(genome, a.seed_len, load_factor=a.load_factor,
+                             device=dev, chunked=a.chunked, verbose=True)
+    idx.genome_index().save(a.directory)
     dt = time.time() - t0
     print(f"indexed {genome.num_bases:,} bases in {dt:.1f}s "
-          f"({genome.num_bases / max(dt, 1e-9):,.0f} bases/s)")
+          f"({genome.num_bases / max(dt, 1e-9):,.0f} bases/s) on {dev}")
     return 0
 
 
@@ -209,20 +225,23 @@ def cmd_transcriptome(argv):
     p.add_argument("fasta")
     p.add_argument("directory")
     p.add_argument("-s", dest="seed_len", type=int, default=20)
+    _add_build_device(p)
     a = p.parse_args(argv)
     from .index.genome import read_fasta_genome
-    from .index.hash_index import build_index
+    from .index.hash_index import build_index_device
+    from .models.single import resolve_device
     from .rna.gtf import GTFReader
     from .rna.transcriptome import build_transcriptome_genome
+    dev = resolve_device(a.device)
     t0 = time.time()
     genome = read_fasta_genome(a.fasta)
     gtf = GTFReader.load(a.gtf)
     tgenome = build_transcriptome_genome(gtf, genome)
-    idx = build_index(tgenome, a.seed_len)
-    idx.save(a.directory)
+    idx = build_index_device(tgenome, a.seed_len, device=dev)
+    idx.genome_index().save(a.directory)
     gtf.save_cache(a.directory)
     print(f"transcriptome: {tgenome.num_pieces} transcripts, "
-          f"{tgenome.num_bases:,} bases in {time.time() - t0:.1f}s")
+          f"{tgenome.num_bases:,} bases in {time.time() - t0:.1f}s on {dev}")
     return 0
 
 

@@ -26,14 +26,18 @@ from __future__ import annotations
 
 import json
 import os
+import time
 from dataclasses import dataclass
 
 import numpy as np
+import torch
 
 from ..constants import (INVALID_GENOME_LOCATION, MAX_SEED_LENGTH,
                          MIN_SEED_LENGTH, UNUSED_HASH_VALUE)
+from ..ops import u32
 from .genome import Genome
-from .seeds import murmur_finalize_u32, pack_all_seeds
+from .seeds import (murmur_finalize_torch, murmur_finalize_u32,
+                    pack_all_seeds, pack_all_seeds_torch)
 
 QUADRATIC_CHAINING_DEPTH = 5  # HashTable.h:117
 _EMPTY = np.uint32(INVALID_GENOME_LOCATION)
@@ -762,3 +766,445 @@ def build_index_chunked(genome: Genome, seed_len: int,
                        ht_keys=ht_keys, ht_val1=ht_val1, ht_val2=ht_val2,
                        shard_starts=shard_starts, overflow=overflow,
                        shard_ovf_starts=shard_ovf_starts)
+
+
+# ----------------------------------------------------------------------
+# the build as torch code on a device
+# ----------------------------------------------------------------------
+#
+# The same tables as build_index / build_index_chunked, built from tensors
+# on any device (CPU tensors run the same code).  Memory is bounded as the
+# chunked builder bounds it, but without a spill: seeds are packed CHUNK
+# positions at a time; one counting pass sizes groups of whole logical
+# shards of at most GROUP_SEEDS seeds; each group re-packs the genome,
+# keeps its own seeds, sorts them stably by (canonical << 1 | half) and
+# runs the grouping core, keeping only the distinct keys and their two
+# values (12 bytes a key).  Once every shard's key count is known, the
+# tables are allocated straight in parallel/sharded.py partition_index's
+# layout (one (max_slots, 3) entry tensor per index slice, overflow
+# pointers rebased to the slice) and filled INSERT_KEYS keys at a time.
+# The budgets keep a 3.2 Gb genome's build (seed length 20, 8 slices)
+# inside an 80 GB card: 48 GB of entries and 2 GB of overflow, the keys not
+# yet inserted, and one batch's sort or insert temporaries.
+
+BUILD_CHUNK = 1 << 27        # genome positions packed at a time
+BUILD_GROUP_SEEDS = 1 << 28  # seeds sorted at a time (whole logical shards)
+BUILD_INSERT_KEYS = 1 << 26  # keys inserted at a time (whole logical shards)
+CHUNKED_SCALE = 1 << 4       # -chunked divides the three by this
+# a slice's slot offsets are int32 (ops/lookup.py lookup_seeds' shard_start)
+MAX_SLICE_SLOTS = (1 << 31) - 1
+HOST_COPY_ROWS = 1 << 26     # entry rows genome_index() copies at a time
+
+
+def shard_sizes_for(keys_per_shard: np.ndarray, load_factor: float):
+    """Slots of each logical table: ceil(keys / lf) + 1, at least 2, and 0
+    for a table without keys (float64, as build_index computes them)."""
+    sizes = np.maximum(
+        2, np.ceil(keys_per_shard / load_factor).astype(np.int64) + 1)
+    sizes[keys_per_shard == 0] = 0
+    return sizes
+
+
+def slice_cuts(starts: np.ndarray, n_idx: int) -> np.ndarray:
+    """Contiguous ranges of logical shards over n_idx slices, balanced by
+    slot count: the n_idx + 1 shard indexes where the slices begin."""
+    n_shards = starts.shape[0] - 1
+    if n_idx > n_shards:
+        raise ValueError(f"cannot split {n_shards} logical tables over "
+                         f"{n_idx} devices")
+    targets = np.linspace(0, int(starts[-1]), n_idx + 1)
+    cut = np.searchsorted(starts, targets[1:-1], side="left")
+    return np.concatenate(([0], cut, [n_shards])).astype(np.int64)
+
+
+def slices_needed(starts: np.ndarray) -> int:
+    """The fewest slices (slice_cuts) of which none is past MAX_SLICE_SLOTS
+    slots."""
+    biggest = int(np.diff(starts).max(initial=0))
+    if biggest > MAX_SLICE_SLOTS:
+        raise ValueError(f"a logical table of {biggest:,} slots is past "
+                         "int32 slot offsets; use a longer seed")
+    n = max(1, -(-int(starts[-1]) // MAX_SLICE_SLOTS))
+    while np.diff(starts[slice_cuts(starts, n)]).max() > MAX_SLICE_SLOTS:
+        n += 1
+    return n
+
+
+def slice_layout(starts, ovf_starts, cuts):
+    """(max_slots, max_ovf, shard_start, shard_size) of the slices: the
+    common padded lengths, and per slice its (n_shards,) int32 slot ranges
+    with size 0 for the tables it does not own.  Raises for a slice past
+    MAX_SLICE_SLOTS, whose offsets int32 cannot hold."""
+    n_idx, n_shards = cuts.shape[0] - 1, starts.shape[0] - 1
+    max_slots = int(np.diff(starts[cuts]).max())
+    if max_slots > MAX_SLICE_SLOTS:
+        raise ValueError(f"a slice of {max_slots:,} slots is past int32 "
+                         "slot offsets; split the index over more slices")
+    max_ovf = max(1, int(np.diff(ovf_starts[cuts]).max()))
+    sh_start = np.zeros((n_idx, n_shards), np.int32)
+    sh_size = np.zeros((n_idx, n_shards), np.int32)
+    for d in range(n_idx):
+        lo, hi = int(cuts[d]), int(cuts[d + 1])
+        sh_start[d, lo:hi] = (starts[lo:hi] - starts[lo]).astype(np.int32)
+        sh_size[d, lo:hi] = np.diff(starts[lo:hi + 1]).astype(np.int32)
+    return max_slots, max_ovf, sh_start, sh_size
+
+
+def rebase_values(v, genome_size: int, o0: int):
+    """Entry values (int32-carried u32) with overflow pointers moved down
+    by o0, a slice's first overflow offset (up for a negative o0, which
+    undoes it); locations, the empty and the unused markers stay."""
+    if o0 == 0:
+        return v
+    w = u32.to_i64(v)
+    is_ovf = (w >= genome_size) & (w != INVALID_GENOME_LOCATION) & \
+        (w != UNUSED_HASH_VALUE)
+    return u32.from_i64(torch.where(is_ovf, w - o0, w))
+
+
+def empty_entries(n_slots: int, device):
+    """(n_slots, 3) int32-carried u32 entries: key 0, value1 empty,
+    value2 0 (build_index's fill)."""
+    e = torch.zeros((n_slots, 3), dtype=torch.int32, device=device)
+    e[:, 1] = u32.const(INVALID_GENOME_LOCATION)
+    return e
+
+
+@dataclass
+class DeviceIndex:
+    """An index's tables as tensors on one device, in n_index slices of
+    whole logical shards (parallel/sharded.py partition_index's layout).
+
+    parts: ht_entries and overflow, lists of n_index (max_slots, 3) and
+    (max_ovf,) int32 tensors holding u32 bits; shard_start and shard_size,
+    (n_index, n_shards) int32 tensors; cuts, the slices' first shards."""
+    genome: Genome
+    seed_len: int
+    shard_starts: np.ndarray       # int64[n_shards + 1], global slots
+    shard_ovf_starts: np.ndarray   # int64[n_shards + 1]
+    parts: dict
+
+    @property
+    def genome_size(self) -> int:
+        return self.genome.num_bases
+
+    @property
+    def total_slots(self) -> int:
+        return int(self.shard_starts[-1])
+
+    @property
+    def overflow_len(self) -> int:
+        return int(self.shard_ovf_starts[-1])
+
+    def genome_index(self) -> GenomeIndex:
+        """The tables as a host GenomeIndex (what build_index returns,
+        ready to save), assembled slice by slice: each slice's own rows,
+        HOST_COPY_ROWS at a time, with its overflow pointers moved back to
+        the global offsets, and its own overflow entries."""
+        gsize, starts = self.genome_size, self.shard_starts
+        ovf_starts, cuts = self.shard_ovf_starts, self.parts["cuts"]
+        cols = [np.empty(self.total_slots, np.uint32) for _ in range(3)]
+        overflow = np.empty(self.overflow_len, np.uint32)
+        for d, (e, o) in enumerate(zip(self.parts["ht_entries"],
+                                       self.parts["overflow"])):
+            lo, hi = int(cuts[d]), int(cuts[d + 1])
+            s0, s1 = int(starts[lo]), int(starts[hi])
+            o0, o1 = int(ovf_starts[lo]), int(ovf_starts[hi])
+            for r0 in range(0, s1 - s0, HOST_COPY_ROWS):
+                r1 = min(r0 + HOST_COPY_ROWS, s1 - s0)
+                rows = e[r0:r1]
+                host = u32.to_numpy(torch.stack(
+                    [rows[:, 0], rebase_values(rows[:, 1], gsize, -o0),
+                     rebase_values(rows[:, 2], gsize, -o0)], dim=1))
+                for j in range(3):
+                    cols[j][s0 + r0:s0 + r1] = host[:, j]
+            overflow[o0:o1] = u32.to_numpy(o[:o1 - o0])
+        return GenomeIndex(
+            genome=self.genome, seed_len=self.seed_len, ht_keys=cols[0],
+            ht_val1=cols[1], ht_val2=cols[2],
+            shard_starts=starts.copy(), overflow=overflow,
+            shard_ovf_starts=ovf_starts.copy())
+
+
+def build_index_device(genome: Genome, seed_len: int,
+                       load_factor: float = 0.7, device="cuda",
+                       n_index: int | None = None, *,
+                       chunked: bool = False,
+                       chunk: int | None = None,
+                       group_seeds: int | None = None,
+                       insert_keys: int | None = None,
+                       verbose: bool = False) -> DeviceIndex:
+    """build_index on `device`: the same tables, in n_index slices (by
+    default the fewest whose slot offsets int32 holds, slices_needed).
+
+    chunked divides the packing, sorting and insert budgets by
+    CHUNKED_SCALE (less memory, more passes; the same bytes).  chunk,
+    group_seeds and insert_keys override the budgets (positions, seeds and
+    keys).  The genome's codes are copied to the device for the build and
+    freed with its other temporaries before it returns."""
+    if not MIN_SEED_LENGTH <= seed_len <= MAX_SEED_LENGTH:
+        raise ValueError(
+            f"seed length must be in [{MIN_SEED_LENGTH}, {MAX_SEED_LENGTH}]")
+    if genome.num_bases >= 0xFFFFFFF0:
+        raise ValueError("genome too large for 32-bit locations")
+    scale = CHUNKED_SCALE if chunked else 1
+    chunk = chunk or BUILD_CHUNK // scale
+    group_seeds = group_seeds or BUILD_GROUP_SEEDS // scale
+    insert_keys = insert_keys or BUILD_INSERT_KEYS // scale
+    dev = torch.device(device)
+    t0 = time.time()
+
+    def say(msg):
+        if verbose:
+            held = (f", {torch.cuda.memory_allocated(dev):,} device bytes "
+                    "held" if dev.type == "cuda" else "")
+            print(f"  [{time.time() - t0:7.1f} s] {msg}{held}", flush=True)
+
+    n_shards = 4 ** max(0, seed_len - 16)
+    host = np.ascontiguousarray(genome.codes, dtype=np.uint8)
+    if not host.flags.writeable:      # a memory-mapped genome
+        host = host.copy()
+    codes = torch.from_numpy(host).to(dev)
+
+    seeds_per_shard = torch.zeros(n_shards, dtype=torch.int64, device=dev)
+    for _start, canon, _half, valid in _seed_chunks(codes, seed_len, chunk):
+        seeds_per_shard += torch.bincount(canon[valid] >> 32,
+                                          minlength=n_shards)
+        del canon, _half, valid        # before the next chunk is packed
+    sps = seeds_per_shard.cpu().numpy()
+    groups = _shard_groups(sps, group_seeds)
+    say(f"{int(sps.sum()):,} seeds in {n_shards} logical tables, "
+        f"{len(groups)} groups")
+
+    keys_per_shard = np.zeros(n_shards, np.int64)
+    ovf_starts = np.zeros(n_shards + 1, np.int64)
+    compact, ovf_chunks, ovf_base = [], [], 0
+    for g0, g1 in groups:
+        n_seeds = int(sps[g0:g1].sum())
+        if n_seeds == 0:
+            ovf_starts[g0:g1] = ovf_base
+            continue
+        sk = torch.empty(n_seeds, dtype=torch.int64, device=dev)
+        cl = torch.empty(n_seeds, dtype=torch.int64, device=dev)
+        p = 0
+        for start, canon, half, valid in _seed_chunks(codes, seed_len,
+                                                       chunk):
+            sh = canon >> 32
+            take = torch.nonzero(valid & (sh >= g0) & (sh < g1)).squeeze(1)
+            k = take.numel()
+            sk[p:p + k] = (canon[take] << 1) | half[take]
+            cl[p:p + k] = take + start
+            p += k
+            del canon, half, valid, sh, take
+        sk, order = torch.sort(sk, stable=True)
+        cl = cl[order]
+        del order
+        g = _grouped_tables_torch(sk, cl, genome.num_bases, ovf_base)
+        del sk, cl
+        kps = torch.bincount((g["keys"] >> 32) - g0,
+                             minlength=g1 - g0).cpu().numpy()
+        keys_per_shard[g0:g1] = kps
+        # each shard's overflow range (_ovf_shard_bounds, in the group)
+        n_ovf = g["overflow"].shape[0]
+        ext = torch.cat([g["multi_starts"], torch.tensor(
+            [ovf_base + n_ovf], dtype=torch.int64, device=dev)])
+        first = torch.searchsorted(
+            g["multi_keys"] >> 32,
+            torch.arange(g0, g1, dtype=torch.int64, device=dev))
+        ovf_starts[g0:g1] = ext[first].cpu().numpy()
+        compact.append(dict(g0=g0, g1=g1, kps=kps,
+                            keys=u32.from_i64(g["keys"]),
+                            val1=g["val1"], val2=g["val2"]))
+        ovf_chunks.append(g["overflow"])
+        ovf_base += n_ovf
+        del g
+        say(f"shards {g0}-{g1 - 1}: {n_seeds:,} seeds, "
+            f"{int(kps.sum()):,} keys")
+    del codes
+    ovf_starts[n_shards] = ovf_base
+    if genome.num_bases + ovf_base > 0xFFFFFFF0:
+        raise ValueError("overflow table too large; use a longer seed")
+    overflow = (torch.cat(ovf_chunks) if ovf_chunks else
+                torch.zeros(0, dtype=torch.int32, device=dev))
+    ovf_chunks.clear()
+
+    sizes = shard_sizes_for(keys_per_shard, load_factor)
+    starts = np.concatenate(([0], np.cumsum(sizes))).astype(np.int64)
+    if n_index is None:
+        n_index = slices_needed(starts)
+    cuts = slice_cuts(starts, n_index)
+    max_slots, max_ovf, sh_start, sh_size = slice_layout(starts, ovf_starts,
+                                                         cuts)
+    ovf_slices = []
+    for d in range(n_index):
+        o0, o1 = (int(ovf_starts[cuts[d]]), int(ovf_starts[cuts[d + 1]]))
+        ovf = torch.zeros(max_ovf, dtype=torch.int32, device=dev)
+        ovf[:o1 - o0] = overflow[o0:o1]
+        ovf_slices.append(ovf)
+    del overflow
+    key_starts = {c["g0"]: np.concatenate(([0], np.cumsum(c["kps"])))
+                  for c in compact}
+    entries = []
+    for d in range(n_index):
+        lo, hi = int(cuts[d]), int(cuts[d + 1])
+        s0 = int(starts[lo])
+        o0 = int(ovf_starts[lo])
+        ent = empty_entries(max_slots, dev)
+        for ci, c in enumerate(compact):
+            if c is None or c["g1"] <= lo or c["g0"] >= hi:
+                continue
+            a, b = max(lo, c["g0"]), min(hi, c["g1"])
+            ks = key_starts[c["g0"]]
+            for b0, b1 in _shard_groups(c["kps"][a - c["g0"]:b - c["g0"]],
+                                        insert_keys):
+                s_a, s_b = a + b0, a + b1
+                k0, k1 = int(ks[s_a - c["g0"]]), int(ks[s_b - c["g0"]])
+                if k1 == k0:
+                    continue
+                counts = torch.from_numpy(keys_per_shard[s_a:s_b]).to(dev)
+                base = torch.repeat_interleave(torch.from_numpy(
+                    starts[s_a:s_b] - s0).to(dev), counts)
+                size = torch.repeat_interleave(
+                    torch.from_numpy(sizes[s_a:s_b]).to(dev), counts)
+                _insert_torch(
+                    ent, c["keys"][k0:k1],
+                    rebase_values(c["val1"][k0:k1], genome.num_bases, o0),
+                    rebase_values(c["val2"][k0:k1], genome.num_bases, o0),
+                    base, size, int(starts[s_a] - s0),
+                    int(starts[s_b] - starts[s_a]))
+            if c["g1"] <= hi:
+                compact[ci] = None        # every shard of it is in place
+        entries.append(ent)
+        say(f"slice {d}: shards {lo}-{hi - 1}, "
+            f"{int(starts[hi] - s0):,} slots")
+    parts = dict(ht_entries=entries, overflow=ovf_slices,
+                 shard_start=torch.from_numpy(sh_start).to(dev),
+                 shard_size=torch.from_numpy(sh_size).to(dev), cuts=cuts)
+    return DeviceIndex(genome=genome, seed_len=seed_len,
+                       shard_starts=starts, shard_ovf_starts=ovf_starts,
+                       parts=parts)
+
+
+def _seed_chunks(codes, seed_len: int, chunk: int):
+    """(first position, canonical, half, valid) of every position's seed,
+    `chunk` positions at a time; canonical = min(fwd, rc) and half = fwd
+    > rc, int64 and bool tensors on the codes' device."""
+    n_pos = codes.shape[0] - seed_len + 1
+    for start in range(0, max(n_pos, 0), chunk):
+        stop = min(start + chunk, n_pos)
+        fwd, rc, valid = pack_all_seeds_torch(
+            codes[start:stop + seed_len - 1], seed_len)
+        yield start, torch.minimum(fwd, rc), fwd > rc, valid
+
+
+def _shard_groups(counts: np.ndarray, budget: int):
+    """Consecutive (lo, hi) ranges of shards whose counts sum to at most
+    `budget` (a single shard over it forms its own range)."""
+    groups, lo, acc = [], 0, 0
+    for s, c in enumerate(counts.tolist()):
+        if s > lo and acc + c > budget:
+            groups.append((lo, s))
+            lo, acc = s, 0
+        acc += c
+    groups.append((lo, len(counts)))
+    return groups
+
+
+def _grouped_tables_torch(sk, cl, num_bases: int, ovf_base: int) -> dict:
+    """_grouped_tables on tensors: sk the sorted (canonical << 1 | half)
+    int64 keys, cl their int64 locations (ascending within a key, the
+    stable sort's order).  Returns the distinct canonical keys (int64),
+    val1 / val2 and the overflow chunk (int32-carried u32; pointers
+    rebased by ovf_base), and each multi-hit group's absolute overflow
+    start and canonical key."""
+    dev = sk.device
+    n = sk.shape[0]
+    new_group = torch.ones(n, dtype=torch.bool, device=dev)
+    new_group[1:] = sk[1:] != sk[:-1]
+    group_start = torch.nonzero(new_group).squeeze(1)
+    n_groups = group_start.shape[0]
+    group_count = torch.diff(group_start, append=torch.tensor(
+        [n], dtype=torch.int64, device=dev))
+    is_multi = group_count >= 2
+    multi_counts = group_count[is_multi]
+    entry_sizes = multi_counts + 1
+    entry_starts = torch.cumsum(entry_sizes, 0) - entry_sizes
+    n_ovf = int(entry_sizes.sum())
+    overflow = torch.empty(n_ovf, dtype=torch.int32, device=dev)
+    if n_ovf:
+        overflow[entry_starts] = u32.from_i64(multi_counts)
+        elem_group = torch.cumsum(new_group, 0) - 1
+        in_multi = is_multi[elem_group]
+        eg = elem_group[in_multi]
+        del elem_group
+        rank = torch.nonzero(in_multi).squeeze(1) - group_start[eg]
+        slot_of_group = torch.full((n_groups,), -1, dtype=torch.int64,
+                                   device=dev)
+        slot_of_group[is_multi] = entry_starts
+        # ascending input + reversed rank -> descending stored list
+        dest = slot_of_group[eg] + group_count[eg] - rank
+        del eg, rank, slot_of_group
+        overflow[dest] = u32.from_i64(cl[in_multi])
+        del dest, in_multi
+    at_entry = torch.zeros(n_groups, dtype=torch.int64, device=dev)
+    at_entry[is_multi] = entry_starts
+    group_value = u32.from_i64(torch.where(
+        is_multi, num_bases + ovf_base + at_entry, cl[group_start]))
+    del at_entry
+    sk_of_group = sk[group_start]
+    key_of_group = sk_of_group >> 1
+    upper = (sk_of_group & 1).bool()
+    del sk_of_group
+    new_key = torch.ones(n_groups, dtype=torch.bool, device=dev)
+    new_key[1:] = key_of_group[1:] != key_of_group[:-1]
+    key_id = torch.cumsum(new_key, 0) - 1
+    keys = key_of_group[new_key]
+    unused = u32.const(UNUSED_HASH_VALUE)
+    val1 = torch.full((keys.shape[0],), unused, dtype=torch.int32, device=dev)
+    val2 = torch.full_like(val1, unused)
+    val1[key_id[~upper]] = group_value[~upper]
+    val2[key_id[upper]] = group_value[upper]
+    return dict(keys=keys, val1=val1, val2=val2, overflow=overflow,
+                multi_starts=entry_starts + ovf_base,
+                multi_keys=key_of_group[is_multi])
+
+
+def _insert_torch(entries, keys, val1, val2, base, size, claim_base: int,
+                  claim_size: int) -> None:
+    """_insert_all on tensors, into the (slots, 3) int32 `entries`.
+
+    keys / val1 / val2: int32-carried u32, in canonical order; base, size:
+    int64 slot offset and size of each key's table in `entries`.  Every
+    round, each pending key proposes its probe slot; of the proposals for
+    a free slot the lowest key id wins (a scatter with amin, which is
+    defined whatever the order of the writes, as numpy's reversed writes
+    are in build_index), and the others take their next probe step.
+    claim_base / claim_size bound the slots the keys can reach."""
+    dev = keys.device
+    n = keys.shape[0]
+    empty = u32.const(INVALID_GENOME_LOCATION)
+    idx = murmur_finalize_torch(u32.to_i64(keys)) % size.clamp_min(1)
+    ids = torch.arange(n, dtype=torch.int64, device=dev)
+    n_probes = torch.zeros(n, dtype=torch.int64, device=dev)
+    claim = torch.full((claim_size,), n, dtype=torch.int64, device=dev)
+    rounds = 0
+    while ids.shape[0]:
+        slots = base + idx
+        free = entries[slots, 1] == empty
+        cand, rel = ids[free], slots[free] - claim_base
+        claim.scatter_reduce_(0, rel, cand, "amin")
+        won = claim[rel] == cand
+        claim[rel] = n
+        w, ws = cand[won], rel[won] + claim_base
+        entries[ws] = torch.stack([keys[w], val1[w], val2[w]], dim=1)
+        placed = torch.zeros_like(free)
+        placed[free] = won
+        keep = ~placed
+        ids, idx, n_probes = ids[keep], idx[keep], n_probes[keep] + 1
+        base, size = base[keep], size[keep]
+        step = torch.where(n_probes < QUADRATIC_CHAINING_DEPTH,
+                           n_probes * n_probes, 1)
+        idx = (idx + step) % size
+        rounds += 1
+        if rounds > 10000:
+            raise RuntimeError("hash insertion failed to converge")

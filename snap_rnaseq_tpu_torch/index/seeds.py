@@ -96,3 +96,63 @@ def murmur_finalize_u32(key: np.ndarray) -> np.ndarray:
     k = (k * np.uint64(0xC2B2AE35)) & M
     k ^= k >> np.uint64(16)
     return k.astype(np.uint32)
+
+
+# ----------------------------------------------------------------------
+# the same packing and hash as torch functions, for the device build
+# ----------------------------------------------------------------------
+
+def _windows(x, seed_len: int, join):
+    """join-combined values of every length-seed_len window of x, by
+    doubling: w_{a+b}[i] = join(w_a[i], w_b[i + a], a, b), over the binary
+    digits of seed_len (about 2 log2(seed_len) passes, not seed_len)."""
+    n = x.shape[0]
+    acc, acc_len = None, 0
+    power, p_len = x, 1
+    bits = seed_len
+    while True:
+        if bits & 1:
+            if acc is None:
+                acc, acc_len = power, p_len
+            else:       # the power goes in front of the digits so far
+                m = n - p_len - acc_len + 1
+                acc = join(power[:m], acc[p_len:p_len + m], p_len, acc_len)
+                acc_len += p_len
+        bits >>= 1
+        if not bits:
+            return acc
+        m = n - 2 * p_len + 1
+        power = join(power[:m], power[p_len:p_len + m], p_len, p_len)
+        p_len *= 2
+
+
+def pack_all_seeds_torch(codes, seed_len: int):
+    """pack_all_seeds on a uint8 tensor, on its device: (fwd, rc, valid),
+    int64 packs (seeds of at most 25 bases use 50 bits) and a bool mask,
+    equal to the numpy function's (invalid windows pack to 0)."""
+    import torch
+    n = codes.shape[0]
+    m = n - seed_len + 1
+    if m <= 0:
+        z = torch.zeros(0, dtype=torch.int64, device=codes.device)
+        return z, z.clone(), torch.zeros(0, dtype=torch.bool,
+                                         device=codes.device)
+    c = (codes & 3).to(torch.int64)
+    fwd = _windows(c, seed_len, lambda a, b, la, lb: (a << (2 * lb)) | b)
+    rc = _windows(c ^ 3, seed_len, lambda a, b, la, lb: a | (b << (2 * la)))
+    valid = _windows(codes < 4, seed_len, lambda a, b, la, lb: a & b)
+    zero = torch.zeros((), dtype=torch.int64, device=codes.device)
+    return (torch.where(valid, fwd, zero), torch.where(valid, rc, zero),
+            valid)
+
+
+def murmur_finalize_torch(key):
+    """murmur_finalize_u32 on the low 32 bits of an int64 tensor; int64
+    out (values below 2^32)."""
+    M = 0xFFFFFFFF
+    k = key & M
+    k = k ^ (k >> 16)
+    k = (k * 0x85EBCA6B) & M
+    k = k ^ (k >> 13)
+    k = (k * 0xC2B2AE35) & M
+    return k ^ (k >> 16)

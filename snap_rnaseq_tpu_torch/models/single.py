@@ -127,29 +127,33 @@ def index_state_from_numpy(arrays: dict, cuckoo: dict | None,
     genome's piece_offsets); cuckoo: cuckoo_layout_for(index), or None to
     ship the probe-chain table (ht_entries, shard_start, shard_size)
     instead.  u32 arrays become int32 tensors with the same bits, so both
-    engines can align against the very same tables.  A genome_p4 or
-    piece_starts given as a tensor is used as it is (the index slices of
-    a mesh that share a device share one copy)."""
+    engines can align against the very same tables.  An array given as a
+    tensor is used as it is (the index slices of a mesh that share a
+    device share one genome_p4; a table built on the device stays there)."""
     dev = torch.device(device)
     p4 = arrays.get("genome_p4")
     if p4 is None:
         p4 = pack_genome_4bit(np.asarray(arrays["genome_codes"]))
     pieces = arrays["piece_starts"]
     state = dict(
-        overflow=u32.from_numpy(arrays["overflow"], dev),
-        genome_p4=(p4.to(dev) if isinstance(p4, torch.Tensor)
-                   else u32.from_numpy(p4, dev)),
+        overflow=tensor_on(arrays["overflow"], dev),
+        genome_p4=tensor_on(p4, dev),
         piece_starts=(pieces.to(dev) if isinstance(pieces, torch.Tensor)
                       else torch.from_numpy(
                           np.asarray(pieces).astype(np.int32)).to(dev)),
         genome_size=int(arrays["genome_size"]))
     if cuckoo is None:
         for k in ("ht_entries", "shard_start", "shard_size"):
-            state[k] = u32.from_numpy(arrays[k], dev)
+            state[k] = tensor_on(arrays[k], dev)
     else:
         for k in ("ck_buckets", "ck_buckets2", "ck_stash"):
             state[k] = u32.from_numpy(cuckoo[k], dev)
     return state
+
+
+def tensor_on(a, dev) -> torch.Tensor:
+    """A u32 table as its int32 carrier on `dev` (a tensor: as it is)."""
+    return a.to(dev) if isinstance(a, torch.Tensor) else u32.from_numpy(a, dev)
 
 
 def index_state(index: GenomeIndex, device) -> dict:

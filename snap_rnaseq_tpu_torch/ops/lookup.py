@@ -29,6 +29,7 @@ _EMPTY = u32.const(INVALID_GENOME_LOCATION)
 _UNUSED = u32.const(UNUSED_HASH_VALUE)
 MAX_PROBES = 64  # probes a lane; a longer chain counts as not found
 UNROLLED = 4     # probe rounds over every lane before the stragglers' loop
+PROBE_WINDOW = 16  # stragglers' probes read at once
 _CK_SALT1 = 0x9E3779B1
 _CK_SALT2 = 0x85EBCA77
 _M32 = u32.MASK32
@@ -103,7 +104,8 @@ def _probe(ht_entries, base, idx, key):
 
 
 def lookup_seeds(packed: dict, ht_entries, shard_start, shard_size, *,
-                 rem: int | None = None):
+                 rem: int | None = None,
+                 max_probes: int | None = MAX_PROBES):
     """Probe the index's probe-chain table for every (read, seed).
 
     ht_entries: (slots, 3) int32-carried u32, the reference's 12-byte
@@ -113,10 +115,12 @@ def lookup_seeds(packed: dict, ht_entries, shard_start, shard_size, *,
     reference's sequence (murmur start, then +1, +4, +9, +16, then +1).
     UNROLLED rounds run over every lane; the stragglers are then taken in
     blocks of `rem` lanes (default min(B*S, max(256, B*S // 16)), as the
-    JAX package) and walked until each ends, the host checking after each
-    probe whether any lane of the block is still going, and at most to
-    MAX_PROBES probes a lane (a chain cut there counts as not found).  The
-    results do not depend on `rem`.
+    JAX package) and walked until each ends, PROBE_WINDOW probes at a
+    time, the host checking after each window whether any lane of the
+    block is still going, and at most to max_probes probes a lane (a
+    chain cut there counts as not found, as in the JAX package; None
+    walks every chain to its end, as the host GenomeIndex.lookup_seed
+    does).  The results do not depend on `rem` or the window.
 
     Returns (found bool (B,S), fwd_val, rc_val) with the values as
     int32-carried u32, already swapped so fwd_val describes the seed as
@@ -166,22 +170,35 @@ def lookup_seeds(packed: dict, ht_entries, shard_start, shard_size, *,
         take = pending[lo:lo + rem]
         c_key, c_base = flat(key)[take], flat(base)[take]
         c_size = flat(size_safe)[take]
-        c_idx, c_n = flat(idx)[take], flat(n_probes)[take]
+        c_idx = flat(idx)[take]
         c_done = torch.zeros_like(take, dtype=torch.bool)
         c_found = torch.zeros_like(c_done)
         c_v1 = torch.full_like(c_key, _UNUSED)
         c_v2 = torch.full_like(c_key, _UNUSED)
-        for _ in range(UNROLLED, MAX_PROBES):
-            c_n = torch.where(c_done, c_n, c_n + 1)
-            step = torch.where(c_n < 5, c_n * c_n, 1)
-            c_idx = torch.where(c_done, c_idx, (c_idx + step) % c_size)
-            hit, empty, v1, v2 = _probe(ht_entries, c_base, c_idx, c_key)
-            newly = ~c_done & (hit | empty | (c_n > c_size + 5))
-            got = newly & hit
+        # past the unrolled rounds every step is +1: the t-th further
+        # probe reads slot (idx + t) % size, and a lane stops at a hit, an
+        # empty slot or once its probe count passes size + 5; a window of
+        # PROBE_WINDOW probes is read at once and each lane takes its first
+        # stop in it (the per-probe walk's answer, in fewer operations)
+        t0 = 0
+        while max_probes is None or t0 < max_probes - UNROLLED:
+            w = PROBE_WINDOW if max_probes is None else \
+                min(PROBE_WINDOW, max_probes - UNROLLED - t0)
+            t = torch.arange(t0 + 1, t0 + w + 1, dtype=torch.int32,
+                             device=key.device)
+            hit, empty, v1, v2 = _probe(                      # (R, w)
+                ht_entries, c_base[:, None],
+                (c_idx[:, None] + t) % c_size[:, None], c_key[:, None])
+            stop = hit | empty | (UNROLLED + t > c_size[:, None] + 5)
+            j = torch.where(stop, t - t0 - 1, w).amin(dim=1, keepdim=True)
+            newly = ~c_done & (j[:, 0] < w)
+            j = j.clamp_max(w - 1).long()
+            got = newly & hit.gather(1, j)[:, 0]
             c_found = c_found | got
-            c_v1 = torch.where(got, v1, c_v1)
-            c_v2 = torch.where(got, v2, c_v2)
+            c_v1 = torch.where(got, v1.gather(1, j)[:, 0], c_v1)
+            c_v2 = torch.where(got, v2.gather(1, j)[:, 0], c_v2)
             c_done = c_done | newly
+            t0 += w
             if bool(c_done.all()):
                 break
         found[take], slot_v1[take], slot_v2[take] = c_found, c_v1, c_v2

@@ -43,9 +43,10 @@ import numpy as np
 import torch
 
 from ..constants import INVALID_GENOME_LOCATION, UNUSED_HASH_VALUE
-from ..index.hash_index import GenomeIndex, build_cuckoo_layout
+from ..index.hash_index import (DeviceIndex, GenomeIndex,
+                                build_cuckoo_layout, slice_cuts,
+                                slice_layout)
 from ..models import single as sg
-from ..ops import u32
 from ..ops.genome_gather import genome_words
 from ..ops.lv import phred_log_prob_device
 from ..utils.seed_sequencer import seed_position_schedule
@@ -70,35 +71,21 @@ def partition_index(index: GenomeIndex, n_idx: int,
 
     Each slice keeps the FULL logical-shard metadata vectors (n_shards
     entries) with size 0 for unowned tables, so the unmodified lookup
-    misses on unowned seeds.  The arrays equal the JAX package's."""
+    misses on unowned seeds.  The arrays equal the JAX package's.  (An
+    index built on the device, hash_index.py DeviceIndex, comes in this
+    layout already.)"""
     if use_cuckoo is None:
         use_cuckoo = _use_cuckoo_lookup()
-    n_shards = index.n_shards
-    if n_idx > n_shards:
-        raise ValueError(f"cannot split {n_shards} logical tables over "
-                         f"{n_idx} devices")
     starts = index.shard_starts
     ovf_starts = index.shard_ovf_starts
-    total_slots = int(starts[-1])
     gsize = index.genome_size
-
-    # contiguous ranges of logical shards, balanced by slot count
-    targets = np.linspace(0, total_slots, n_idx + 1)
-    cut = np.searchsorted(starts, targets[1:-1], side="left")
-    cuts = np.concatenate(([0], cut, [n_shards])).astype(np.int64)
-
-    max_slots = 0
-    max_ovf = 1
-    for d in range(n_idx):
-        lo, hi = cuts[d], cuts[d + 1]
-        max_slots = max(max_slots, int(starts[hi] - starts[lo]))
-        max_ovf = max(max_ovf, int(ovf_starts[hi] - ovf_starts[lo]))
+    cuts = slice_cuts(starts, n_idx)
+    max_slots, max_ovf, sh_start, sh_size = slice_layout(starts, ovf_starts,
+                                                         cuts)
 
     entries = np.zeros((n_idx, max_slots, 3), np.uint32)
     entries[:, :, 1] = INVALID_GENOME_LOCATION
     ovf = np.zeros((n_idx, max_ovf), np.uint32)
-    sh_start = np.zeros((n_idx, n_shards), np.int32)
-    sh_size = np.zeros((n_idx, n_shards), np.int32)
 
     for d in range(n_idx):
         lo, hi = int(cuts[d]), int(cuts[d + 1])
@@ -115,8 +102,6 @@ def partition_index(index: GenomeIndex, n_idx: int,
         entries[d, :s1 - s0, 1] = v1.astype(np.uint32)
         entries[d, :s1 - s0, 2] = v2.astype(np.uint32)
         ovf[d, :o1 - o0] = index.overflow[o0:o1]
-        sh_start[d, lo:hi] = (starts[lo:hi] - s0).astype(np.int32)
-        sh_size[d, lo:hi] = np.diff(starts[lo:hi + 1]).astype(np.int32)
 
     # per-device bucket (cuckoo) layouts at ONE common shape (hashing uses
     # GLOBAL shard ids via shard_base).  With SNAP_TPU_LOOKUP=probe no
@@ -289,7 +274,7 @@ def _end_pipeline(reads, quals, shards, sched, schedule, wraps, cfg,
 class _ShardedBase:
     """The index slices on the mesh, and the batch split over 'data'."""
 
-    def __init__(self, index: GenomeIndex, mesh: DeviceMesh):
+    def __init__(self, index: GenomeIndex | DeviceIndex, mesh: DeviceMesh):
         self.index = index
         self.mesh = mesh
         self.n_data = mesh.shape["data"]
@@ -297,13 +282,26 @@ class _ShardedBase:
         self.device = mesh.devices[0, 0]
         self.genome_size = index.genome_size
         self._use_cuckoo = _use_cuckoo_lookup()
-        parts = partition_index(index, self.n_idx, self._use_cuckoo)
+        if isinstance(index, DeviceIndex):
+            # built on the device in slices (hash_index.py
+            # build_index_device): its own partition, which has no cuckoo
+            # layout
+            if self._use_cuckoo:
+                raise ValueError("a DeviceIndex serves the probe-chain "
+                                 "lookup only (SNAP_TPU_LOOKUP=probe)")
+            parts = index.parts
+            if len(parts["ht_entries"]) != self.n_idx:
+                raise ValueError(
+                    f"a device index in {len(parts['ht_entries'])} slices "
+                    f"on a mesh of {self.n_idx} index coordinates")
+        else:
+            parts = partition_index(index, self.n_idx, self._use_cuckoo)
         tables = _TABLE_KEYS[self._use_cuckoo]
         p4 = genome_words(index.genome)
         pieces = index.genome.piece_offsets.astype(np.int32)
         # the replicated tensors once per distinct device, each index slice
         # once per distinct device that holds one of its coordinates
-        shared = {dev: (u32.from_numpy(p4, dev),
+        shared = {dev: (sg.tensor_on(p4, dev),
                         torch.from_numpy(pieces).to(dev))
                   for dev in set(mesh.devices.ravel())}
         placed = {}

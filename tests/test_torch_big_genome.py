@@ -521,7 +521,8 @@ def rna_world(tmp_path_factory):
     reads = golden_rna._rna_dataset(tmp, jg, gtf)
     tidx = os.path.join(tmp, "tidx")
     with contextlib.redirect_stdout(io.StringIO()):
-        assert port_cli(["transcriptome", gtf, fa, tidx]) == 0
+        assert port_cli(["transcriptome", gtf, fa, tidx,
+                         "--device", "cpu"]) == 0
     return dict(tmp=tmp, gtf=gtf, reads=reads, tidx=tidx,
                 index=build_index(read_fasta_genome(fa), seed_len=20))
 

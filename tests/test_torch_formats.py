@@ -96,7 +96,7 @@ def data(tmp_path_factory):
     tmp = str(tmp_path_factory.mktemp("formats"))
     fa, fq = test_golden._build_dataset(tmp)
     idx = os.path.join(tmp, "idx")
-    assert _quiet(port_cli, ["index", fa, idx]) == 0
+    assert _quiet(port_cli, ["index", fa, idx, "--device", "cpu"]) == 0
     fq = _with_duplicates(fq, os.path.join(tmp, "dups.fq"), range(6),
                           [_random_read(b"rand", 1)])
 
@@ -104,8 +104,9 @@ def data(tmp_path_factory):
     os.makedirs(rtmp)
     rfa, gtf, g = golden_rna._build_ref(rtmp)
     gidx, tidx = os.path.join(rtmp, "gidx"), os.path.join(rtmp, "tidx")
-    assert _quiet(port_cli, ["index", rfa, gidx]) == 0
-    assert _quiet(port_cli, ["transcriptome", gtf, rfa, tidx]) == 0
+    assert _quiet(port_cli, ["index", rfa, gidx, "--device", "cpu"]) == 0
+    assert _quiet(port_cli, ["transcriptome", gtf, rfa, tidx,
+                             "--device", "cpu"]) == 0
     r1, r2 = golden_rna._paired_dataset(rtmp, g)
     r1 = _with_duplicates(r1, os.path.join(rtmp, "d1.fq"), range(4),
                           [_random_read(b"randp/1", 2)])

@@ -729,3 +729,36 @@ def test_aligners_at_big_locations_on_card_equal_cpu(card, kind):
             assert (u[m] < 1 << 31).any() and (u[m] >= 1 << 31).any()
         elif v.dtype != np.float32:
             np.testing.assert_array_equal(got[k], unlifted[k], err_msg=k)
+
+
+@pytest.mark.parametrize("n_index", [1, 8])
+def test_index_build_on_card_equals_cpu(card, n_index):
+    """index/hash_index.py build_index_device on the card (default and
+    small budgets: seeds cut across packing chunks, logical tables across
+    sort groups and insert batches) equals the same build on CPU tensors,
+    slice for slice; its host tables, assembled slice by slice, equal the
+    numpy build_index."""
+    from snap_rnaseq_tpu_torch.index.hash_index import build_index_device
+    codes = hg_like_genome(1_500_000, seed=21)
+    codes[700_000:700_040] = 5                   # a genome N run
+    genome = genome_from_codes(codes)
+    want = build_index_device(genome, 20, device="cpu", n_index=n_index)
+    for budgets in ({}, dict(chunk=99_991, group_seeds=200_000,
+                             insert_keys=50_000)):
+        got = build_index_device(genome, 20, device=card, n_index=n_index,
+                                 **budgets)
+        for k in ("ht_entries", "overflow"):
+            for g, w in zip(got.parts[k], want.parts[k]):
+                assert g.device.type == "cuda"
+                assert torch.equal(g.cpu(), w), k
+        for k in ("shard_start", "shard_size"):
+            assert torch.equal(got.parts[k].cpu(), want.parts[k]), k
+        np.testing.assert_array_equal(got.shard_starts, want.shard_starts)
+        np.testing.assert_array_equal(got.shard_ovf_starts,
+                                      want.shard_ovf_starts)
+    host = build_index(genome, seed_len=20)
+    one = got.genome_index()
+    for k in ("ht_keys", "ht_val1", "ht_val2", "shard_starts",
+              "overflow", "shard_ovf_starts"):
+        np.testing.assert_array_equal(getattr(one, k), getattr(host, k),
+                                      err_msg=k)

@@ -277,7 +277,7 @@ def golden(tmp_path_factory):
     r1, r2 = golden_paired._paired_dataset(tmp, _g)
     idx = os.path.join(tmp, "idx")
     with contextlib.redirect_stdout(io.StringIO()):
-        assert port_cli(["index", fa, idx]) == 0
+        assert port_cli(["index", fa, idx, "--device", "cpu"]) == 0
     return dict(tmp=tmp, fa=fa, r1=r1, r2=r2, idx=idx)
 
 
@@ -344,7 +344,7 @@ sys.modules["jax"] = None
 sys.modules["snap_rnaseq_tpu"] = None
 from snap_rnaseq_tpu_torch.cli import main
 fa, r1, r2, idx, out = sys.argv[1:6]
-assert main(["index", fa, idx]) == 0
+assert main(["index", fa, idx, "--device", "cpu"]) == 0
 assert main(["paired", idx, r1, r2, "-o", out, "--device", "cpu"]) == 0
 assert not [m for m in sys.modules
             if m.split(".")[0] in ("jax", "jaxlib", "snap_rnaseq_tpu")

@@ -103,7 +103,8 @@ def test_transcriptome_dirs_byte_identical(small_rna):
     directories (index and GTFReader.save_cache) is the same."""
     fa, gtf = str(small_rna / "ref.fa"), str(small_rna / "anno.gtf")
     a, b = str(small_rna / "tidx_port"), str(small_rna / "tidx_jax")
-    assert _quiet(port_cli, ["transcriptome", gtf, fa, a]) == 0
+    assert _quiet(port_cli, ["transcriptome", gtf, fa, a,
+                             "--device", "cpu"]) == 0
     assert _quiet(jax_cli, ["transcriptome", gtf, fa, b]) == 0
     names = sorted(os.listdir(b))
     assert sorted(os.listdir(a)) == names and "gtf.json" in names
@@ -222,7 +223,7 @@ def rna_ref(tmp_path_factory):
     tmp = str(tmp_path_factory.mktemp("rna_ref"))
     fa, gtf, g = golden_rna._build_ref(tmp)
     gidx, tidx = os.path.join(tmp, "gidx"), os.path.join(tmp, "tidx")
-    assert _quiet(port_cli, ["index", fa, gidx]) == 0
+    assert _quiet(port_cli, ["index", fa, gidx, "--device", "cpu"]) == 0
     assert _quiet(jax_cli, ["transcriptome", gtf, fa, tidx]) == 0
     return dict(tmp=tmp, fa=fa, gtf=gtf, genome=g, gidx=gidx, tidx=tidx)
 
@@ -235,8 +236,8 @@ import torch
 torch.set_num_threads(1)   # beside the other test processes' threads
 from snap_rnaseq_tpu_torch.cli import main
 fa, gtf, reads, gidx, tidx, out = sys.argv[1:7]
-assert main(["index", fa, gidx]) == 0
-assert main(["transcriptome", gtf, fa, tidx]) == 0
+assert main(["index", fa, gidx, "--device", "cpu"]) == 0
+assert main(["transcriptome", gtf, fa, tidx, "--device", "cpu"]) == 0
 assert main(["single", gidx, tidx, gtf, reads, "-o", out, "--device",
              "cpu"]) == 0
 assert not [m for m in sys.modules
@@ -343,7 +344,7 @@ def rna_paired(rna_ref):
     with open(cfa, "wb") as f:
         f.write(b">rRNA\n" + decode_bases(contam) + b"\n")
     cidx = os.path.join(tmp, "cidx")
-    assert _quiet(port_cli, ["index", cfa, cidx]) == 0
+    assert _quiet(port_cli, ["index", cfa, cidx, "--device", "cpu"]) == 0
     fr(contam, b"ct", 6, sub=1)
     r1, r2 = os.path.join(tmp, "p_r1.fq"), os.path.join(tmp, "p_r2.fq")
     _write_pairs(r1, r2, pairs)

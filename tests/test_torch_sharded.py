@@ -263,8 +263,9 @@ def rna_world(tmp_path_factory):
                                         (8001, 8700)])]
     open(gtf, "w").write("\n".join(rows) + "\n")
     gidx, tidx = str(tmp / "gidx"), str(tmp / "tidx")
-    assert _quiet(port_cli, ["index", fa, gidx]) == 0
-    assert _quiet(port_cli, ["transcriptome", gtf, fa, tidx]) == 0
+    assert _quiet(port_cli, ["index", fa, gidx, "--device", "cpu"]) == 0
+    assert _quiet(port_cli, ["transcriptome", gtf, fa, tidx,
+                             "--device", "cpu"]) == 0
     g = read_fasta_genome(fa)
     codes = np.asarray(g.codes)
     base = int(g.piece_offsets[0])

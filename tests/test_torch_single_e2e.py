@@ -56,7 +56,7 @@ def golden(tmp_path_factory):
     tmp = str(tmp_path_factory.mktemp("golden"))
     fa, fq = test_golden._build_dataset(tmp)
     idx = os.path.join(tmp, "idx")
-    assert port_cli(["index", fa, idx]) == 0
+    assert port_cli(["index", fa, idx, "--device", "cpu"]) == 0
     return dict(tmp=tmp, fa=fa, fq=fq, idx=idx)
 
 
@@ -99,7 +99,7 @@ import torch
 torch.set_num_threads(1)   # beside the other test processes' threads
 from snap_rnaseq_tpu_torch.cli import main
 fa, fq, idx, out = sys.argv[1:5]
-assert main(["index", fa, idx]) == 0
+assert main(["index", fa, idx, "--device", "cpu"]) == 0
 assert main(["single", idx, fq, "-o", out, "--device", "cpu"]) == 0
 assert main(["single", idx, fq, "-so", "-o", out + ".bam", "--device",
              "cpu"]) == 0
