@@ -15,7 +15,8 @@ failure; nothing is caught.
    and K4's column loops at W = 3-5 and of the innermost loops of the
    three LV kernels, with tools/sass_loops.py's cycles an iteration (the
    dependent chain, in-order issue, and issue with loads as fast as
-   arithmetic).
+   arithmetic); the SASS analysis runs in a process of its own during
+   phase 2 and is logged at its end.
 2. Kernel checks: K1 (LV-lanes), K2 (packed bitpar, forward and every
    mate-rescue form), K3 (LV-CIGAR), K4 (bitpar over code rows) and K5
    (LV-lanes over per-diagonal mismatch masks) each against its plain PyTorch
@@ -153,6 +154,21 @@ failure; nothing is caught.
       statistics beside HG_ALIGN.json's with the counts more than 0.5%
       apart listed, one batch's wall and busy ms, the peak device bytes
       (under the card's memory) and the peak host RSS.
+   l. the bench tools (after 4j, before 4k), on phase 4's index, which is
+      bench.py's index exactly: tools/bench.py (3 batches of 1,024 wgsim
+      pairs, PairedAligner(cand_per_read=64), 3 windows of 10 batches and
+      one profiled window; the single-end engine on the
+      paired aligner's device copy of the index; the batches as FASTQ to
+      SAM through PairedEndPipeline, its SAM validated, one record a read),
+      paths bench_pe, bench_se, bench_sam (K3 as well); pairs found and single-end
+      reads aligned >= 0.95; tools/engine_ab.py all, 2 windows a
+      configuration (paths ab_norescue,
+      ab_onehot: K5 and both K2 forms launch and K1 does not, ab_b2048,
+      ab_cand128; `onehot` finds the pairs `default` finds);
+      tools/phase_profile.py at cand 128 and 64, 4 calls a phase (its flat
+      phases as paths profile_flat and profile_flat64: K4 and K1);
+      tools/op_profile.py
+      on 4 batches (its categories sum to its total).
    The launch counters are zeroed just before each run and read just
    after; each kernel of that path must have launched.  Prints the rate,
    the aligned share, the share placed at the true origin (checked), the
@@ -167,7 +183,7 @@ failure; nothing is caught.
    -P 150 on the card; K4 must have launched in each.
 6. Path shapes: during each main path's run (4a, 4b, 4c, 4e's `flat`,
    4g's probe runs, 4h's `distance_hist`, 4i's mesh paths, 4j's `*_big`
-   paths, 4k's `hg`, 5) every
+   paths, 4k's `hg`, 4l's bench tool paths, 5) every
    call of a kernel wrapper is counted by its argument shapes,
    and the first call of each shape is recorded with a copy of its
    inputs.  Each recorded
@@ -2959,6 +2975,132 @@ def hg_phase(genome_future, device="cuda"):
     return res, calls
 
 
+# ---------------------------------------------------------------- phase 4l
+
+# the bench tools' main paths: tools/bench.py's stages, engine_ab's
+# configurations and phase_profile's flat phases at cand 128 and 64, with
+# the kernels each must launch; the other stages (engine_ab's default and
+# se, which bench_pe and the single-end engines' paths cover,
+# phase_profile's paired phases, op_profile) run uncounted
+SE_CORE = ("K1_lv_lanes", "K2_bitpar_packed")
+ONEHOT_RESCUE = ("K5_lv_onehot", "K2_bitpar_packed", "K2_bitpar_rescue")
+TOOL_PATHS = {
+    ("bench", "pe"): ("bench_pe", RESCUE_CORE),
+    ("bench", "se"): ("bench_se", SE_CORE),
+    ("bench", "sam"): ("bench_sam", BAM_PATH),
+    ("ab", "norescue"): ("ab_norescue", SE_CORE),
+    ("ab", "onehot"): ("ab_onehot", ONEHOT_RESCUE),
+    ("ab", "b2048"): ("ab_b2048", RESCUE_CORE),
+    ("ab", "cand128"): ("ab_cand128", RESCUE_CORE),
+    ("profile128", "flat"): ("profile_flat", FLAT_PATH),
+    ("profile64", "flat"): ("profile_flat64", FLAT_PATH),
+}
+# 4l's depth, cut to keep the script inside its time limit: the bench's
+# windows (its default 5), engine_ab's (5) and phase_profile's calls (32);
+# the width stays: batches of 1,024 pairs of 100 bases, the 64 Mb index
+BENCH_WINDOWS = 3
+AB_WINDOWS = 2
+PROFILE_CALLS = 4
+OP_PROFILE_BATCHES = 4
+
+
+def host_op_us(n=20_000):
+    """The host's microseconds a tiny eager operation on the card (n adds
+    on 16 numbers, one synchronize), the threads alive and the objects the
+    garbage collector tracks: read early and late in the script, they
+    show whether the process's own state slows the engines' dispatch."""
+    import gc
+    import threading
+    import torch
+    x = torch.zeros(16, device="cuda")
+    torch.cuda.synchronize()
+    t0 = time.time()
+    for _ in range(n):
+        x = x + 1
+    torch.cuda.synchronize()
+    return dict(us_per_op=(time.time() - t0) * 1e6 / n,
+                threads=threading.active_count(),
+                gc_objects=len(gc.get_objects()))
+
+
+def tools_phase(tmp, idx, device="cuda"):
+    """Phase 4l: the bench tools on phase 4's index, which is bench.py's
+    index exactly (hg_like_genome(64e6, seed=0) at seed length 20): bench
+    (paired, single-end, FASTQ to SAM), engine_ab's configurations (all),
+    phase_profile at cand 128 and 64, op_profile; at the depths above.
+    One device copy of the index serves every tool.  Each stage on a path
+    of TOOL_PATHS runs through counted_run.  Returns (the tools' output,
+    {path: launches}, {path: calls})."""
+    import torch
+    from snap_rnaseq_tpu_torch.index.hash_index import GenomeIndex
+    from snap_rnaseq_tpu_torch.models.paired import PairedAligner
+    from snap_rnaseq_tpu_torch.tools import (bench, engine_ab, op_profile,
+                                             phase_profile)
+    launches, calls, secs = {}, {}, {}
+
+    def stage_of(tool):
+        def stage(name, fn):
+            path = TOOL_PATHS.get((tool, name))
+            if path is None:
+                return fn()
+            res, launches[path[0]], calls[path[0]], _, _ = counted_run(
+                fn, path[1], path[0], device)
+            return res
+        return stage
+
+    host = host_op_us()
+    log(f"host before 4l: {json.dumps(host)}")
+    t0 = time.time()
+    index = GenomeIndex.load(idx)
+    base = PairedAligner(index, device=device, cand_per_read=64)
+    secs["load"] = time.time() - t0
+    t0 = time.time()
+    sam_dir = os.path.join(tmp, "bench_sam")
+    b = bench.run(index, device=device, windows=BENCH_WINDOWS, base=base,
+                  sam_dir=sam_dir, stage=stage_of("bench"),
+                  index_source="phase 4's index")
+    secs["bench"] = time.time() - t0
+    x = b["extra"]
+    n_reads = 2 * x["batch_pairs"] * 3
+    if x["fraction_pairs_found"] < 0.95 or \
+            x["single_end"]["fraction_aligned"] < 0.95:
+        raise AssertionError(f"bench: pairs found {x['fraction_pairs_found']}"
+                             f", single-end aligned "
+                             f"{x['single_end']['fraction_aligned']}")
+    n_sam = len(check_valid(os.path.join(sam_dir, "out.sam")))
+    if n_sam != n_reads:
+        raise AssertionError(f"bench SAM: {n_sam} records, {n_reads} reads")
+    check_lanes_kernel("bits", launches["bench_pe"], "bench_pe")
+    t0 = time.time()
+    ab = [engine_ab.run_config(n, index, base, windows=AB_WINDOWS,
+                               stage=stage_of("ab"))
+          for n in engine_ab.ALL]
+    secs["engine_ab"] = time.time() - t0
+    check_lanes_kernel("onehot", launches["ab_onehot"], "ab_onehot")
+    found = {l["config"]: l["found_share"] for l in ab}
+    if found["onehot"] != found["default"] or min(found.values()) < 0.95:
+        raise AssertionError(f"engine_ab found shares {found}")
+    prof = {}
+    for cpr in (128, 64):
+        t0 = time.time()
+        prof[cpr] = phase_profile.run(
+            index, device=device, cand_per_read=cpr, calls=PROFILE_CALLS,
+            base=base, stage=stage_of(f"profile{cpr}"))[0]
+        secs[f"phase_profile{cpr}"] = time.time() - t0
+    t0 = time.time()
+    ops = op_profile.run(index, device=device, base=base,
+                         n_batches=OP_PROFILE_BATCHES)
+    secs["op_profile"] = time.time() - t0
+    if abs(sum(ops["rollup"].values()) - ops["self_ms_per_batch"]) > 1e-6 * \
+            ops["self_ms_per_batch"]:
+        raise AssertionError("op_profile's categories do not sum to its "
+                             "total")
+    del base, index
+    torch.cuda.empty_cache()
+    return dict(bench=b, engine_ab=ab, phase_profile=prof, op_profile=ops,
+                seconds=secs, sam_records=n_sam, host=host), launches, calls
+
+
 # ---------------------------------------------------------------- phase 4c
 
 RNA_GENES = 1300
@@ -3177,33 +3319,15 @@ def rna_t_engine_phase(tidx, codes, batch):
     return res
 
 
-# device kernels of the port, by the name the profiler gives them
-KERNEL_NAMES = (("K1_lv_lanes", "lv_lanes_kernel"),
-                ("K2_bitpar_packed", "bitpar_packed_kernel"),
-                ("K3_lv_cigar", "lv_cigar_kernel"),
-                ("K4_bitpar_rows", "bitpar_rows_kernel"),
-                ("K5_lv_onehot", "lv_onehot_kernel"))
-
-
-def kernel_of(event_name):
-    for name, sym in KERNEL_NAMES:
-        if sym in event_name:
-            # K2's rescue instantiations carry a true template flag
-            if name == "K2_bitpar_packed" and "true" in event_name:
-                return "K2_bitpar_rescue"
-            return name
-    return None
-
-
 def engine_phase(step, batches, per_batch, n_warm=2, n_timed=4):
     """An engine alone: `step(batch)` dispatches one batch and fetches its
     outputs, as the pipeline does.  After n_warm batches, n_timed batches
     are timed on the host's clock and the same n_timed again under
-    torch.profiler, whose device events give the busy time (kernels and
-    copies summed), the operation count and each kernel's time."""
+    torch.profiler (tools/measure.py device_profile), whose device events
+    give the busy time (kernels and copies summed), the operation count
+    and each kernel's time and events."""
     import torch
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
+    from snap_rnaseq_tpu_torch.tools.measure import device_profile
 
     def run(group):
         for b in group:
@@ -3215,32 +3339,15 @@ def engine_phase(step, batches, per_batch, n_warm=2, n_timed=4):
     t0 = time.time()
     run(timed)
     wall_ms = (time.time() - t0) * 1e3 / n_timed
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        run(timed)
-    busy_us, n_ops, kern_us, kern_n = 0.0, 0, {}, {}
-    for e in prof.events():
-        if e.device_type != DeviceType.CUDA:
-            continue
-        us = e.time_range.elapsed_us()
-        busy_us += us
-        n_ops += 1
-        k = kernel_of(e.name)
-        if k:
-            kern_us[k] = kern_us.get(k, 0.0) + us
-            kern_n[k] = kern_n.get(k, 0) + 1
-    busy_ms = busy_us / 1e3 / n_timed
-    if n_ops == 0:
-        raise AssertionError("the profiler saw no device operation")
+    prof = device_profile(lambda: run(timed), n_timed, torch.device("cuda"))
+    busy_ms = prof["device_busy_ms"]
     return dict(batch=per_batch, wall_ms_per_batch=wall_ms,
                 per_s=per_batch * 1e3 / wall_ms,
                 device_busy_ms_per_batch=busy_ms,
                 device_idle_share=1.0 - busy_ms / wall_ms,
-                device_ops_per_batch=n_ops / n_timed,
-                kernel_ms_per_batch={k: v / 1e3 / n_timed
-                                     for k, v in sorted(kern_us.items())},
-                kernel_events_per_batch={k: v / n_timed
-                                         for k, v in sorted(kern_n.items())})
+                device_ops_per_batch=prof["device_ops"],
+                kernel_ms_per_batch=prof["kernel_ms"],
+                kernel_events_per_batch=prof["kernel_events"])
 
 
 def single_engine_phase(idx, codes, batch):
@@ -3316,11 +3423,17 @@ def kernel_label(mangled):
     return f"{m.group(1)}<{','.join(args)}>"
 
 
+SASS_LIBS = ("bitpar_packed", "bitpar_packed_w5", "bitpar_rows", "lv_lanes",
+             "lv_cigar", "lv_onehot")
+
+
 def build_report(libs):
-    """Each kernel's registers and spill bytes from the build (`-Xptxas
-    -v`), and the SASS size of the innermost loops of K2 and K4
-    (tools/sass_loops.py; W = 3-5, i.e. P = 65-160) and of every LV
-    kernel instance (K1, K3, K5)."""
+    """Logs each kernel's registers and spill bytes from the build
+    (`-Xptxas -v`).  Returns a future of the SASS lines (sass_lines), made
+    by a process of its own while phase 2 runs (the loop analysis is tens
+    of seconds of Python), or None without cuobjdump."""
+    import multiprocessing
+    from concurrent.futures import ProcessPoolExecutor
     from snap_rnaseq_tpu_torch.ops import kernels as kx
     from snap_rnaseq_tpu_torch.tools import sass_loops
     for name in kx.SOURCES:
@@ -3331,16 +3444,30 @@ def build_report(libs):
             + json.dumps(rows))
     if sass_loops.cuobjdump() is None:
         log("sass: cuobjdump not found")
-        return
-    for name in ("bitpar_packed", "bitpar_packed_w5", "bitpar_rows",
-                 "lv_lanes", "lv_cigar", "lv_onehot"):
-        for fn, loops in sass_loops.report(libs[name]).items():
+        return None
+    pool = ProcessPoolExecutor(
+        1, mp_context=multiprocessing.get_context("spawn"))
+    future = pool.submit(sass_lines, {n: libs[n] for n in SASS_LIBS})
+    pool.shutdown(wait=False)         # its one task still runs to its end
+    return future
+
+
+def sass_lines(paths):
+    """(lines, seconds): the SASS size of the innermost loops of K2 and K4
+    (tools/sass_loops.py; W = 3-5, i.e. P = 65-160) and of every LV
+    kernel instance (K1, K3, K5), for the libraries at `paths`."""
+    from snap_rnaseq_tpu_torch.tools import sass_loops
+    t0, lines = time.time(), []
+    for name, so in paths.items():
+        for fn, loops in sass_loops.report(so).items():
             label = kernel_label(fn)
             if name.startswith("lv") or any(
                     f"<{w}," in label for w in (3, 4, 5)):
-                log(f"sass {label}: loop bodies [instructions, cycles an "
+                lines.append(
+                    f"sass {label}: loop bodies [instructions, cycles an "
                     "iteration: chain, issue, issue with fast loads]: "
                     f"{[[n, *t] for n, _, *t in loops]}")
+    return lines, time.time() - t0
 
 
 def kernel_entry(name, source, replaces, by_path, at_path):
@@ -3397,7 +3524,7 @@ def main():
     log(f"build: {time.time() - t0:.3f} s for {len(kx.SOURCES)} libraries; "
         "seconds to each one's end: " + json.dumps(
             {k: round(v, 1) for k, v in kx.BUILD_SECONDS.items()}))
-    build_report(libs)
+    sass = build_report(libs)
     log(f"peaks: {HBM_BYTES_PER_S:.4g} B/s HBM, {int32_ops_per_s():.4g} "
         "int32 op/s")
 
@@ -3410,6 +3537,11 @@ def main():
     for c in checks:
         log(f"{c['name']}: {c['rows']} rows match the plain version, "
             f"max_abs_err {c['max_abs_err']}")
+    if sass is not None:
+        lines, sass_s = sass.result()
+        for line in lines:
+            log(line)
+        log(f"sass: {sass_s:.1f} s in a process of its own")
 
     log(f"phases 1-2: {time.time() - t_start:.1f} s")
     with tempfile.TemporaryDirectory() as tmp:
@@ -3419,6 +3551,7 @@ def main():
             f"{n_rna['bits']} / {n_rna['onehot']} RNA single (K1 / K5) SAM "
             "lines identical on the card")
         log(f"phase 3: {time.time() - t0:.1f} s")
+        log(f"host after phase 3: {json.dumps(host_op_us())}")
         t0 = time.time()
         codes, idx, index_s = real_index(tmp, GENOME_BASES)
         log(f"phase 4 index: {time.time() - t0:.1f} s ({t0 - t_start:.1f} "
@@ -3475,6 +3608,12 @@ def main():
         big, big_calls, big_launches = big_phase(tmp, idx, BATCH)
         log("real size, big locations (4j): " + json.dumps(big))
         log(f"phase 4j: {time.time() - t0:.1f} s")
+        t0 = time.time()
+        tools, tools_launches, tools_calls = tools_phase(tmp, idx)
+        for name, out in tools.items():
+            log(f"bench tools (4l), {name}: " + json.dumps(out))
+        log(f"bench tools (4l) launches: {json.dumps(tools_launches)}")
+        log(f"phase 4l: {time.time() - t0:.1f} s")
     hg, hg_calls = hg_phase(hg_future)
     del hg_future                     # the genome's 3.2 GB
     log("human size (4k): " + json.dumps(hg))
@@ -3500,14 +3639,14 @@ def main():
                    **{name: probe[name]["launches"] for name in probe_calls},
                    **{name: r["launches"]
                       for name, r in mesh["meshes"].items()}, **big_launches,
-                   hg=hg["launches"])
+                   hg=hg["launches"], **tools_launches)
     at_path = {p: check_path_calls(p, c) for p, c in (
         ("single", single_calls), ("paired", paired_calls),
         ("single150", single150_calls), ("paired150", paired150_calls),
         ("flat", flat_calls), ("distance_hist", dhist_calls),
         *((name, v[2]) for name, v in sz.items()), *rna_calls.items(),
         *probe_calls.items(), *mesh_calls.items(), *big_calls.items(),
-        ("hg", hg_calls))}
+        ("hg", hg_calls), *tools_calls.items())}
     k3_warp_sweep(single_calls)
     k5_vs_k1(rna_calls["rna_single_onehot"])
     log(f"phase 6: {time.time() - t0:.1f} s")

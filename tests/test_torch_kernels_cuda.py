@@ -762,3 +762,63 @@ def test_index_build_on_card_equals_cpu(card, n_index):
               "overflow", "shard_ovf_starts"):
         np.testing.assert_array_equal(getattr(one, k), getattr(host, k),
                                       err_msg=k)
+
+
+def _same_outputs(got, want):
+    assert set(got) == set(want)
+    for k, v in want.items():
+        if v.dtype == np.float32:
+            np.testing.assert_allclose(got[k], v, rtol=1e-5, atol=1e-5,
+                                       err_msg=k)
+        else:
+            np.testing.assert_array_equal(got[k], v, err_msg=k)
+
+
+@pytest.fixture(scope="module")
+def bench_world():
+    """tools/bench.py's operating point at 1 Mb: the index at seed length
+    20, one batch of 512 wgsim pairs over its body (numpy)."""
+    from snap_rnaseq_tpu_torch.tools import measure
+    index = build_index(genome_from_codes(hg_like_genome(1_000_000, seed=0)),
+                        seed_len=20)
+    batch = measure.pair_batches(index, 1_000_000, 512, "cpu", 1)[0]
+    return index, [x.numpy() for x in batch]
+
+
+def test_bench_batch_at_cand64_on_card_equals_cpu(card, bench_world):
+    """The bench's paired engine (cand_per_read=64: K1, K2 forward and the
+    rescue form at shapes of their own) on the card against the same engine
+    with device cpu, and the single-end engine on the paired aligner's
+    device copy of the index likewise."""
+    from snap_rnaseq_tpu_torch.models.paired import PairedAligner
+    from snap_rnaseq_tpu_torch.tools import measure
+    index, b = bench_world
+    kernels.reset_launches()
+    gpu = PairedAligner(index, device=card, cand_per_read=64)
+    got = gpu.align_batch(*b)
+    for name in ("K1_lv_lanes", "K2_bitpar_packed", "K2_bitpar_rescue"):
+        assert kernels.LAUNCHES[name] > 0, name
+    cpu = PairedAligner(index, device="cpu", cand_per_read=64)
+    _same_outputs(got, cpu.align_batch(*b))
+    assert got["pair_found"].mean() > 0.9
+    _same_outputs(
+        measure.single_on_state(gpu, cand_per_read=64).align_batch(b[0], b[1]),
+        measure.single_on_state(cpu, cand_per_read=64).align_batch(b[0], b[1]))
+
+
+def test_engine_ab_onehot_on_card_equals_default(card, bench_world):
+    """engine_ab's `onehot` configuration (K5 scores, the mate rescue's LV
+    included, and K1 does not launch) gives `default`'s outputs."""
+    from snap_rnaseq_tpu_torch.models.paired import PairedAligner
+    from snap_rnaseq_tpu_torch.tools import engine_ab
+    index, b = bench_world
+    base = PairedAligner(index, device=card, cand_per_read=64)
+    with engine_ab.lanes_env("default"):
+        want = engine_ab.config_engine("default", base).align_batch(*b)
+    kernels.reset_launches()
+    with engine_ab.lanes_env("onehot"):
+        got = engine_ab.config_engine("onehot", base).align_batch(*b)
+    for name in ("K5_lv_onehot", "K2_bitpar_packed", "K2_bitpar_rescue"):
+        assert kernels.LAUNCHES[name] > 0, name
+    assert kernels.LAUNCHES["K1_lv_lanes"] == 0
+    _same_outputs(got, want)
