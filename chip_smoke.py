@@ -3512,6 +3512,7 @@ def main():
         return 2
     sys.path.insert(0, ROOT)
     from snap_rnaseq_tpu_torch.ops import kernels as kx
+    from snap_rnaseq_tpu_torch.utils import stats
 
     t_start = time.time()
     dev = torch.device("cuda")
@@ -3521,9 +3522,12 @@ def main():
 
     t0 = time.time()
     libs = kx.build_all()
+    built = stats.totals()["spans"]
     log(f"build: {time.time() - t0:.3f} s for {len(kx.SOURCES)} libraries; "
         "seconds to each one's end: " + json.dumps(
-            {k: round(v, 1) for k, v in kx.BUILD_SECONDS.items()}))
+            {k[len("kernels.build."):]: round(s, 1)
+             for k, (_n, s) in built.items()
+             if k.startswith("kernels.build.")}))
     sass = build_report(libs)
     log(f"peaks: {HBM_BYTES_PER_S:.4g} B/s HBM, {int32_ops_per_s():.4g} "
         "int32 op/s")
@@ -3651,6 +3655,10 @@ def main():
     k5_vs_k1(rna_calls["rna_single_onehot"])
     log(f"phase 6: {time.time() - t0:.1f} s")
     log(f"total: {time.time() - t_start:.1f} s")
+    setup = stats.totals()["spans"]
+    log("index set-up spans over the run (calls, s): " + json.dumps(
+        {k: [n, round(sec, 3)] for k, (n, sec) in setup.items()
+         if k.startswith("index.")}))
 
     kernels = [kernel_entry(name, source, replaces, by_path, at_path)
                for name, (source, replaces) in KERNEL_INFO.items()]

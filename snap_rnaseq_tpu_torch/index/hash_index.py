@@ -35,6 +35,7 @@ import torch
 from ..constants import (INVALID_GENOME_LOCATION, MAX_SEED_LENGTH,
                          MIN_SEED_LENGTH, UNUSED_HASH_VALUE)
 from ..ops import u32
+from ..utils import stats
 from .genome import Genome
 from .seeds import (murmur_finalize_torch, murmur_finalize_u32,
                     pack_all_seeds, pack_all_seeds_torch)
@@ -352,9 +353,10 @@ def cuckoo_layout_for(index: "GenomeIndex", verbose: bool = False) -> dict:
                           ck_buckets2=z["ck_buckets2"],
                           ck_stash=z["ck_stash"])
     if cached is None:
-        cached = build_cuckoo_layout(index.ht_keys, index.ht_val1,
-                                     index.ht_val2, index.shard_starts,
-                                     verbose=verbose)
+        with stats.span("index.cuckoo_layout"):
+            cached = build_cuckoo_layout(index.ht_keys, index.ht_val1,
+                                         index.ht_val2, index.shard_starts,
+                                         verbose=verbose)
         if path:
             # written whole under another name, then renamed: processes
             # that open a fresh index at once never load a partial file
@@ -896,6 +898,7 @@ class DeviceIndex:
     def overflow_len(self) -> int:
         return int(self.shard_ovf_starts[-1])
 
+    @stats.timed("index.host_tables")
     def genome_index(self) -> GenomeIndex:
         """The tables as a host GenomeIndex (what build_index returns,
         ready to save), assembled slice by slice: each slice's own rows,
@@ -926,6 +929,7 @@ class DeviceIndex:
             shard_ovf_starts=ovf_starts.copy())
 
 
+@stats.timed("index.build")
 def build_index_device(genome: Genome, seed_len: int,
                        load_factor: float = 0.7, device="cuda",
                        n_index: int | None = None, *,

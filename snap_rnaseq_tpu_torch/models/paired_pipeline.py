@@ -32,7 +32,7 @@ from ..io.reads import (CLIP_FRONT_AND_BACK, clip_read, count_ns, make_batch,
 from ..io.sam import NOT_FOUND, passes_filter
 from ..io.writers import make_output_and_builder
 from ..utils.async_stages import OrderedWorker, PrefetchIterator
-from ..utils.stats import PairedAlignerStats, WaitProfile
+from ..utils.stats import PairedAlignerStats, WaitProfile, each, span
 from ..utils.wgsim import wgsim_misaligned
 from .paired import PairedAligner, PairedAlignerConfig
 from .single import fetch
@@ -147,9 +147,8 @@ class PairedEndPipeline:
             t0 = time.time()            # reset after the warm-up batch
 
             def bulk_drain(b0, b1, bad, excl, packed):
-                td = time.time()
-                flat = packed.cpu().numpy()
-                self.wait.device_s += time.time() - td
+                with span("pipeline.device"):
+                    flat = packed.cpu().numpy()
                 scal = flat[len(flat) - len(SCALAR_KEYS):]
                 rows = flat[:len(flat) - len(SCALAR_KEYS)].reshape(
                     len(PACK_KEYS), -1)
@@ -165,12 +164,11 @@ class PairedEndPipeline:
                     for e in ("0", "1", ""):
                         if c + e in res:
                             stats.count(c, res[c + e])
-                tw = time.time()
-                emitter.emit_pairs(b0, b1, res, bad, out, stats,
-                                   pass_filter=opt.pass_filter,
-                                   compute_error=check_err,
-                                   exclude=excl)
-                self.wait.write_s += time.time() - tw
+                with span("pipeline.write"):
+                    emitter.emit_pairs(b0, b1, res, bad, out, stats,
+                                       pass_filter=opt.pass_filter,
+                                       compute_error=check_err,
+                                       exclude=excl)
 
             def mk_end(buf, recs):
                 return build_end_block(
@@ -179,8 +177,8 @@ class PairedEndPipeline:
                     min_percent=opt.min_percent_above_phred,
                     phred_offset=opt.phred_offset)
 
-            for (buf0, recs0), (buf1, recs1) in paired_record_blocks(
-                    fq0, fq1, B):
+            for (buf0, recs0), (buf1, recs1) in each(
+                    "pipeline.read", paired_record_blocks(fq0, fq1, B)):
                 if L_eng is None:
                     L_eng = int(max(recs0[:, 3].max(), recs1[:, 3].max()))
                 b0 = mk_end(buf0, recs0)
@@ -325,9 +323,8 @@ class PairedEndPipeline:
                                              b1.quals))
 
             def drain(pairs, out_dev):
-                td = time.time()
-                res = fetch(out_dev)
-                self.wait.device_s += time.time() - td
+                with span("pipeline.device"):
+                    res = fetch(out_dev)
                 stats.truncated_candidates += int(
                     (res["truncated0"] > 0).sum()
                     + (res["truncated1"] > 0).sum())
@@ -337,9 +334,8 @@ class PairedEndPipeline:
                         if c + e in res:
                             stats.count(c, res[c + e])
                 self._emit_batch(builder, pairs, res)
-                tw = time.time()
-                builder.flush(out)
-                self.wait.write_s += time.time() - tw
+                with span("pipeline.write"):
+                    builder.flush(out)
 
             if isinstance(fq0, (str, os.PathLike)) or fq1 is not None:
                 pair_iter = open_paired_read_supplier(

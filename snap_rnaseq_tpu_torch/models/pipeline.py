@@ -30,7 +30,7 @@ from ..io.reads import CLIP_FRONT_AND_BACK, clip_read, count_ns, make_batch, qua
 from ..io.sam import NOT_FOUND, passes_filter
 from ..io.writers import make_output_and_builder
 from ..utils.async_stages import OrderedWorker, PrefetchIterator
-from ..utils.stats import AlignerStats, WaitProfile
+from ..utils.stats import AlignerStats, WaitProfile, span
 from ..utils.wgsim import wgsim_misaligned
 from .single import SingleAligner, SingleAlignerConfig, fetch
 
@@ -104,9 +104,8 @@ class SingleEndPipeline:
                 writer.submit(drain, reads, out_dev)
 
             def drain(reads, out_dev):
-                td = time.time()
-                res = fetch(out_dev)
-                self.wait.device_s += time.time() - td
+                with span("pipeline.device"):
+                    res = fetch(out_dev)
                 stats.lv_calls += int(res["n_lookups"])
                 stats.popular_skipped += int(res["popular"].sum())
                 stats.truncated_candidates += int((res["truncated"] > 0).sum())
@@ -136,9 +135,8 @@ class SingleEndPipeline:
                                     loc if result != NOT_FOUND else -1,
                                     direction, mapq,
                                     score=int(res["score"][i]))
-                tw = time.time()
-                builder.flush(out)
-                self.wait.write_s += time.time() - tw
+                with span("pipeline.write"):
+                    builder.flush(out)
 
             if isinstance(fastq_path, (list, tuple)):
                 supplier = open_multi_read_supplier(fastq_path)

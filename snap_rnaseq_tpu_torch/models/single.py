@@ -50,6 +50,7 @@ from ..ops.genome_gather import (gather_windows, genome_words,
                                  pack_genome_4bit)
 from ..ops.lv import NEG_INF, lv_distance, phred_log_prob_device
 from ..ops.rowscan import seg_broadcast
+from ..utils import stats
 from ..utils.seed_sequencer import seed_position_schedule
 
 # result codes (analog of AlignmentResult, Aligner.h)
@@ -118,6 +119,7 @@ def resolve_device(device="cuda") -> torch.device:
     return dev
 
 
+@stats.timed("index.upload")
 def index_state_from_numpy(arrays: dict, cuckoo: dict | None,
                            device) -> dict:
     """The numpy arrays an index ships to the device -> the port's tensors.
@@ -443,7 +445,7 @@ def score_phase(u, reads, quals, genome_p4, piece_starts, cfg, seed_len,
     M = cfg.e_max
     C = u["read"].shape[0]
     dev = reads.device
-    comp = torch.from_numpy(_COMP_LUT).to(dev)
+    comp = stats.to_device("comp_lut", torch.from_numpy(_COMP_LUT), dev)
     rc_reads = comp[reads.flip(1).long()]
     read_both = torch.stack([reads, rc_reads], dim=1)
     if qlp_both is None:
@@ -897,7 +899,7 @@ def rowwise_score_phase(u2, reads, quals, genome_p4, piece_starts, cfg,
                     scored_ok=sc["scored_ok"].reshape(R, W),
                     score_overflow=zero, n_bucket2=zero, n_fast=zero)
 
-    comp = torch.from_numpy(_COMP_LUT).to(dev)
+    comp = stats.to_device("comp_lut", torch.from_numpy(_COMP_LUT), dev)
     rc_reads = comp[reads.flip(1).long()]
     is_rc = (u2["dir"] == 1)[:, :, None]
     sel = torch.where(is_rc, rc_reads[:, None, :], reads[:, None, :])
@@ -964,15 +966,19 @@ def rowwise_score_phase(u2, reads, quals, genome_p4, piece_starts, cfg,
                              window=win_sub, qlp_both=qlp_both)
         # scatter the Jt results back into their lanes; invalid picks are
         # dropped (the JAX scatter's mode="drop" on an out-of-range row)
-        tr = rows_r[:, None].expand(R, Jt)[lv_valid].long()
-        tc = sel_w[lv_valid].long()
-        out = []
-        for dst, new in ((score, sc_sub["score"]), (logp, sc_sub["logp"]),
-                         (loc_adj, sc_sub["loc_adj"]),
-                         (scored_ok, sc_sub["scored_ok"])):
-            dst = dst.clone()
-            dst[tr, tc] = new.reshape(R, Jt)[lv_valid]
-            out.append(dst)
+        # each of the six boolean-mask indexes reads the mask's count
+        # back to the host: a sync
+        with stats.sync("lv_mask", n=6):
+            tr = rows_r[:, None].expand(R, Jt)[lv_valid].long()
+            tc = sel_w[lv_valid].long()
+            out = []
+            for dst, new in ((score, sc_sub["score"]),
+                             (logp, sc_sub["logp"]),
+                             (loc_adj, sc_sub["loc_adj"]),
+                             (scored_ok, sc_sub["scored_ok"])):
+                dst = dst.clone()
+                dst[tr, tc] = new.reshape(R, Jt)[lv_valid]
+                out.append(dst)
         return tuple(out)
 
     J_small = max(2, J // 4)
@@ -1020,8 +1026,10 @@ def rowwise_replay_phase(u2, sc2, budget, reads, S, cfg: SingleAlignerConfig):
     dev = reads.device
     score, logp, loc_adj = sc2["score"], sc2["logp"], sc2["loc_adj"]
     scored_ok = sc2["scored_ok"]
-    f3e12 = torch.tensor(3e12, dtype=torch.float32, device=dev)
-    neg_inf = torch.tensor(NEG_INF, dtype=torch.float32, device=dev)
+    f3e12 = stats.to_device(
+        "const", torch.tensor(3e12, dtype=torch.float32), dev)
+    neg_inf = stats.to_device(
+        "const", torch.tensor(NEG_INF, dtype=torch.float32), dev)
 
     n_count = (reads == 4).sum(dim=1, dtype=I32)
 
@@ -1199,11 +1207,14 @@ def rowwise_back_half(cands, budget, reads, quals, genome_p4, piece_starts,
                       qlp_both=None, score_scale: int = 1):
     """aggregate -> rowwise score -> rowwise replay.  Returns (u2, sc2,
     out) where out carries the replay results + device counters."""
-    u2 = _aggregate_rows(cands, big=big_locations(genome_size))
-    sc2 = rowwise_score_phase(u2, reads, quals, genome_p4, piece_starts,
-                              cfg, seed_len, read_len, genome_size,
-                              qlp_both=qlp_both, score_scale=score_scale)
-    out = rowwise_replay_phase(u2, sc2, budget, reads, S, cfg)
+    with stats.span("aggregate_rows"):
+        u2 = _aggregate_rows(cands, big=big_locations(genome_size))
+    with stats.span("rowwise_score"):
+        sc2 = rowwise_score_phase(u2, reads, quals, genome_p4, piece_starts,
+                                  cfg, seed_len, read_len, genome_size,
+                                  qlp_both=qlp_both, score_scale=score_scale)
+    with stats.span("rowwise_replay"):
+        out = rowwise_replay_phase(u2, sc2, budget, reads, S, cfg)
     out["score_overflow"] = sc2["score_overflow"]
     out["n_unique_candidates"] = u2["live"].sum(dtype=I32)
     out["n_scored"] = sc2["scored_ok"].sum(dtype=I32)
@@ -1245,16 +1256,32 @@ def flat_align_batch(aligner, reads: torch.Tensor, quals: torch.Tensor):
 # single-device composition
 # ----------------------------------------------------------------------
 
+def count_batch(n_reads: int, truncated: list,
+                batches: str | None = "engine.batches") -> None:
+    """The recorder's per-batch counters (utils/stats.py): the batch (a
+    mesh counts its own), its reads, and the reads whose hit lists the
+    expand phase truncated, from the engine's own per-read `truncated`
+    tensors (counted on the device, only while a profiler records)."""
+    if batches:
+        stats.count(batches)
+    stats.count("engine.reads", n_reads)
+    for t in truncated:
+        stats.count_device("engine.truncated", t)
+
+
+@stats.timed("engine.single", batch=True)
 def _align_batch(reads, quals, state, schedule, wraps, *,
                  cfg: SingleAlignerConfig, seed_len: int, read_len: int,
                  sched_static: tuple):
     genome_size = state["genome_size"]
     S = schedule.shape[0]
-    seeds = seed_phase(reads, sched_static, seed_len, state["overflow"],
-                       genome_size, state)
-    counts_global = torch.where(seeds["found"][:, :, None], seeds["counts"],
-                                0)
-    budget = budget_phase(seeds["valid"], counts_global, wraps, cfg)
+    with stats.span("seed"):
+        seeds = seed_phase(reads, sched_static, seed_len, state["overflow"],
+                           genome_size, state)
+    with stats.span("budget"):
+        counts_global = torch.where(seeds["found"][:, :, None],
+                                    seeds["counts"], 0)
+        budget = budget_phase(seeds["valid"], counts_global, wraps, cfg)
 
     def from_cands(cands, score_scale=1):
         _u2, _sc2, out = rowwise_back_half(
@@ -1265,22 +1292,32 @@ def _align_batch(reads, quals, state, schedule, wraps, *,
         # per-phase device counters (BaseAligner.h:113-118 analog)
         out["n_lookups"] = seeds["found"].sum(dtype=I32)
         out["n_candidates"] = cands["live"].sum(dtype=I32)
+        count_batch(reads.shape[0], [cands["truncated"]])
         return out
 
     big = big_locations(genome_size)
-    cands = expand_phase(seeds, budget, schedule, state["overflow"], cfg,
-                         seed_len, read_len, cfg.cand_per_read, big=big)
+    with stats.span("expand"):
+        cands = expand_phase(seeds, budget, schedule, state["overflow"], cfg,
+                             seed_len, read_len, cfg.cand_per_read, big=big)
     if not (cfg.overflow_tier and cfg.cand_per_read > 0):
         return from_cands(cands)
     # candidate-overflow exact fallback: when the narrow expand truncated
     # any read's hit list, re-expand at 4x and run the wide back half (the
     # narrow result is bit-identical whenever nothing truncated)
-    if int(cands["truncated"].sum()) > 0:
-        return from_cands(
-            expand_phase(seeds, budget, schedule, state["overflow"], cfg,
-                         seed_len, read_len, 4 * cfg.cand_per_read, big=big),
-            score_scale=4)
+    if stats.host_int("overflow_tier", cands["truncated"].sum()) > 0:
+        with stats.span("expand"):
+            wide = expand_phase(seeds, budget, schedule, state["overflow"],
+                                cfg, seed_len, read_len,
+                                4 * cfg.cand_per_read, big=big)
+        return from_cands(wide, score_scale=4)
     return from_cands(cands)
+
+
+def schedule_on(values, dev) -> torch.Tensor:
+    """A seed schedule's positions or wraps as an int32 tensor on `dev`
+    (a host sync on a card, counted as sync.schedule)."""
+    return stats.to_device(
+        "schedule", torch.from_numpy(np.asarray(values, np.int32)), dev)
 
 
 def fetch(out: dict) -> dict:
@@ -1328,8 +1365,7 @@ class SingleAligner:
         dev = self.device
         return _align_batch(
             reads.to(dev), quals.to(dev), self.state,
-            torch.from_numpy(np.asarray(positions, np.int32)).to(dev),
-            torch.from_numpy(np.asarray(wraps, np.int32)).to(dev),
+            schedule_on(positions, dev), schedule_on(wraps, dev),
             cfg=self.cfg.resolve_for_read_len(L),
             seed_len=self.index.seed_len, read_len=L,
             sched_static=tuple(int(x) for x in positions))

@@ -35,6 +35,8 @@ import time
 
 import torch
 
+from ..utils import stats
+
 _HERE = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_HERE, "csrc")
 BUILD_DIR = os.path.join(CSRC, "_build")
@@ -90,7 +92,6 @@ _SETTERS = {"lv_cigar": "lv_cigar_set_warps"}     # K3 warps per block
 # K2 counts its forward (prefilter) and its rescue launches apart
 LAUNCHES = {"K1_lv_lanes": 0, "K2_bitpar_packed": 0, "K2_bitpar_rescue": 0,
             "K3_lv_cigar": 0, "K4_bitpar_rows": 0, "K5_lv_onehot": 0}
-BUILD_SECONDS: dict = {}
 _LOCK = threading.Lock()
 _LAUNCHERS: dict = {}
 _LIBS: dict = {}
@@ -130,11 +131,12 @@ def _so_path(name: str) -> str:
 def build_all(names=None) -> dict:
     """Compile every (or the named) library that is not built yet, all
     nvcc processes at once.  Returns {name: so_path}; raises with the
-    compiler's output if any build fails.  BUILD_SECONDS[name] is each
-    build's wall time from the common start to its nvcc's exit."""
+    compiler's output if any build fails.  Each build is the recorder's
+    span kernels.build.<name> (utils/stats.py), from the common start to
+    its nvcc's exit."""
     names = list(SOURCES) if names is None else list(names)
     os.makedirs(BUILD_DIR, exist_ok=True)
-    procs, paths, t0 = {}, {}, time.time()
+    procs, paths, t0 = {}, {}, time.time_ns()
     for name in names:
         so = _so_path(name)
         paths[name] = so
@@ -153,7 +155,7 @@ def build_all(names=None) -> dict:
             if p.poll() is None:
                 continue
             del procs[name]
-            BUILD_SECONDS[name] = time.time() - t0
+            stats.record_span("kernels.build." + name, t0, time.time_ns())
             log.close()
             if p.returncode != 0:
                 with open(tmp + ".log") as fh:

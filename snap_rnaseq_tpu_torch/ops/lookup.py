@@ -23,6 +23,7 @@ from __future__ import annotations
 import torch
 
 from ..constants import INVALID_GENOME_LOCATION, UNUSED_HASH_VALUE
+from ..utils import stats
 from . import u32
 
 _EMPTY = u32.const(INVALID_GENOME_LOCATION)
@@ -60,9 +61,9 @@ def pack_seeds(reads: torch.Tensor, positions, seed_len: int) -> dict:
     packing), so the launch count does not grow with the schedule."""
     B, L = reads.shape
     n_hi = max(0, seed_len - 16)
-    idx = torch.tensor([[min(int(p) + i, L - 1) for i in range(seed_len)]
-                        for p in positions], dtype=torch.long,
-                       device=reads.device)                 # (S, seed_len)
+    idx = stats.to_device("seed_index", torch.tensor(
+        [[min(int(p) + i, L - 1) for i in range(seed_len)]
+         for p in positions], dtype=torch.long), reads.device)  # (S, len)
     win = reads[:, idx].to(torch.int32)                     # (B, S, seed_len)
     valid = (win < 4).all(dim=2)
     wc = win ^ 3
@@ -165,7 +166,8 @@ def lookup_seeds(packed: dict, ht_entries, shard_start, shard_size, *,
     rem = rem or min(BS, max(256, BS // 16))
     flat = lambda x: x.reshape(BS)
     found, slot_v1, slot_v2 = flat(found), flat(slot_v1), flat(slot_v2)
-    pending = torch.nonzero(~flat(done)).squeeze(1)
+    with stats.sync("probe_pending"):
+        pending = torch.nonzero(~flat(done)).squeeze(1)
     for lo in range(0, pending.numel(), rem):
         take = pending[lo:lo + rem]
         c_key, c_base = flat(key)[take], flat(base)[take]
@@ -199,7 +201,8 @@ def lookup_seeds(packed: dict, ht_entries, shard_start, shard_size, *,
             c_v2 = torch.where(got, v2.gather(1, j)[:, 0], c_v2)
             c_done = c_done | newly
             t0 += w
-            if bool(c_done.all()):
+            stats.count("lookup.probe_windows")
+            if stats.host_int("probe_window", c_done.all()):
                 break
         found[take], slot_v1[take], slot_v2[take] = c_found, c_v1, c_v2
     found = found.reshape(key.shape)

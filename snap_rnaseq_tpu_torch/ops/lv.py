@@ -26,6 +26,7 @@ import numpy as np
 import torch
 
 from ..constants import GAP_EXTEND_PROB, GAP_OPEN_PROB, SNP_PROB
+from ..utils import stats
 
 NEG_INF = -1e30
 LOG_GAP_OPEN = float(np.log(GAP_OPEN_PROB))
@@ -58,9 +59,8 @@ def phred_log_prob_device(qbytes: torch.Tensor) -> torch.Tensor:
     pe = torch.exp2(q * -_LOG2_10_OVER_10)
     v = pe + SNP_PROB * (1.0 - pe)
     in_range = (qbytes >= 33) & (qbytes <= 126)
-    return torch.where(in_range, torch.log(v),
-                       torch.tensor(_LOG_SNP, dtype=torch.float32,
-                                    device=qbytes.device))
+    return torch.where(in_range, torch.log(v), stats.to_device(
+        "const", torch.tensor(_LOG_SNP, dtype=torch.float32), qbytes.device))
 
 
 class LVResult(NamedTuple):

@@ -27,6 +27,7 @@ import ctypes
 import numpy as np
 import torch
 
+from ..utils import stats
 from . import kernels as kx
 from .lv import (LOG_GAP_EXTEND, LOG_GAP_OPEN, LOG_ONE_MINUS_SNP,
                  PHRED_LOG_PROB, LVResult, _d_order, qual_logp_rows)
@@ -41,7 +42,8 @@ def _prio(e_max: int, cigar_order: bool, device) -> torch.Tensor:
     key = (e_max, cigar_order, str(device))
     t = _PRIO.get(key)
     if t is None:
-        t = torch.from_numpy(_d_order(e_max, cigar_order)).to(device)
+        t = stats.to_device(
+            "prio", torch.from_numpy(_d_order(e_max, cigar_order)), device)
         _PRIO[key] = t
     return t
 

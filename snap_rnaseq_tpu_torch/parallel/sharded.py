@@ -49,6 +49,7 @@ from ..index.hash_index import (DeviceIndex, GenomeIndex,
 from ..models import single as sg
 from ..ops.genome_gather import genome_words
 from ..ops.lv import phred_log_prob_device
+from ..utils import stats
 from ..utils.seed_sequencer import seed_position_schedule
 
 I32 = torch.int32
@@ -227,42 +228,55 @@ def _end_pipeline(reads, quals, shards, sched, schedule, wraps, cfg,
     lead = reads.device
     n_idx = len(shards)
     big = sg.big_locations(genome_size)
-    seeds = [sg.seed_phase(reads.to(st["overflow"].device), sched, seed_len,
-                           st["overflow"], genome_size, st)
-             for st in shards]
-    counts_global = _psum([torch.where(s["found"][:, :, None], s["counts"], 0)
-                           for s in seeds], lead)
-    budget = sg.budget_phase(seeds[0]["valid"].to(lead), counts_global,
-                             wraps, cfg)
+    seeds = []
+    for i, st in enumerate(shards):
+        with stats.span(f"seed[{i}]"):
+            seeds.append(sg.seed_phase(reads.to(st["overflow"].device),
+                                       sched, seed_len, st["overflow"],
+                                       genome_size, st))
+    with stats.span("psum"):
+        counts_global = _psum([torch.where(s["found"][:, :, None],
+                                           s["counts"], 0) for s in seeds],
+                              lead)
+    with stats.span("budget"):
+        budget = sg.budget_phase(seeds[0]["valid"].to(lead), counts_global,
+                                 wraps, cfg)
     cands = []
-    for st, s in zip(shards, seeds):
+    for i, (st, s) in enumerate(zip(shards, seeds)):
         dev = st["overflow"].device
-        cands.append(sg.expand_phase(
-            s, _on(budget, dev), schedule.to(dev), st["overflow"], cfg,
-            seed_len, read_len, cfg.cand_per_read, big=big))
-    gathered = {k: _all_gather_rows([c[k] for c in cands], lead)
-                for k in _CAND_KEYS}
-    u2 = sg._aggregate_rows(gathered, big=big)
+        with stats.span(f"expand[{i}]"):
+            cands.append(sg.expand_phase(
+                s, _on(budget, dev), schedule.to(dev), st["overflow"], cfg,
+                seed_len, read_len, cfg.cand_per_read, big=big))
+    with stats.span("gather"):
+        gathered = {k: _all_gather_rows([c[k] for c in cands], lead)
+                    for k in _CAND_KEYS}
+    with stats.span("aggregate_rows"):
+        u2 = sg._aggregate_rows(gathered, big=big)
     # the scoring work re-split over 'index' by lane slices (the gathered
     # width n_idx * cand_per_read divides by construction)
     W_slice = u2["dir"].shape[1] // n_idx
     slices = []
     for i, st in enumerate(shards):
         dev = st["overflow"].device
-        u_slice = {k: v.narrow(1, i * W_slice, W_slice).to(dev)
-                   for k, v in u2.items()}
-        slices.append(sg.rowwise_score_phase(
-            u_slice, reads.to(dev), quals.to(dev), st["genome_p4"],
-            st["piece_starts"], cfg, seed_len, read_len, genome_size))
-    sc2 = {k: _all_gather_rows([s[k] for s in slices], lead)
-           for k in ("score", "logp", "loc_adj", "scored_ok")}
-    single_out = sg.rowwise_replay_phase(u2, sc2, budget, reads,
-                                         len(sched), cfg)
+        with stats.span(f"score[{i}]"):
+            u_slice = {k: v.narrow(1, i * W_slice, W_slice).to(dev)
+                       for k, v in u2.items()}
+            slices.append(sg.rowwise_score_phase(
+                u_slice, reads.to(dev), quals.to(dev), st["genome_p4"],
+                st["piece_starts"], cfg, seed_len, read_len, genome_size))
+    with stats.span("gather"):
+        sc2 = {k: _all_gather_rows([s[k] for s in slices], lead)
+               for k in ("score", "logp", "loc_adj", "scored_ok")}
+    with stats.span("replay"):
+        single_out = sg.rowwise_replay_phase(u2, sc2, budget, reads,
+                                             len(sched), cfg)
     single_out["score_overflow"] = _psum(
         [s["score_overflow"] for s in slices], lead)
     single_out["n_found"] = _psum([s["found"].sum(dtype=I32) for s in seeds],
                                   lead)
-    dense = sg.dense_topk_rowwise(u2, sc2, cfg.cand_per_read)
+    with stats.span("dense_topk"):
+        dense = sg.dense_topk_rowwise(u2, sc2, cfg.cand_per_read)
     truncated = _psum([c["truncated"] for c in cands], lead)
     return dense, single_out, truncated
 
@@ -370,16 +384,17 @@ class ShardedSingleAligner(_ShardedBase):
             B = reads_l.shape[0]
             _dense, out, trunc = _end_pipeline(
                 reads_l, quals_l, shards, sched,
-                torch.tensor(sched, dtype=I32, device=lead),
-                torch.from_numpy(wraps).to(lead), cfg,
+                sg.schedule_on(sched, lead), sg.schedule_on(wraps, lead), cfg,
                 self.index.seed_len, L, self.genome_size)
             out["truncated"] = trunc
+            sg.count_batch(B, [trunc], batches=None)
             # scalar stats as per-read vectors, as the JAX mesh's
             # P('data') outputs carry them
             out["n_lookups"] = out.pop("n_found").expand(B).contiguous()
             out["score_overflow_vec"] = out.pop(
                 "score_overflow").expand(B).contiguous()
             outs.append(out)
+        stats.count("mesh.batches")
         return self._join(outs)
 
 
@@ -397,11 +412,13 @@ class ShardedPairedAligner(_ShardedBase):
         self.cfg = cfg
         super().__init__(index, mesh)
 
+    @stats.timed("mesh.paired", batch=True)
     def align_batch_device(self, reads0, quals0, reads1, quals1) -> dict:
         parts, L = self._split(reads0, quals0, reads1, quals1)
         sched, wraps = self._schedule(L, self.cfg.max_seed_slots)
         outs = [self._data_shard(p, shards, sched, wraps, L)
                 for p, shards in zip(parts, self._shards)]
+        stats.count("mesh.batches")
         return self._join(outs)
 
     def _data_shard(self, part, shards, sched, wraps, L):
@@ -414,8 +431,8 @@ class ShardedPairedAligner(_ShardedBase):
         reads0, quals0, reads1, quals1 = part
         lead = reads0.device
         B = reads0.shape[0]
-        schedule = torch.tensor(sched, dtype=I32, device=lead)
-        wraps_t = torch.from_numpy(wraps).to(lead)
+        schedule = sg.schedule_on(sched, lead)
+        wraps_t = sg.schedule_on(wraps, lead)
         ends = []
         for reads_l, quals_l in ((reads0, quals0), (reads1, quals1)):
             dense, single_out, trunc = _end_pipeline(
@@ -431,18 +448,22 @@ class ShardedPairedAligner(_ShardedBase):
             # JAX mesh passes the raw bytes; LV converts them to the same
             # values)
             lead_st = shards[0]
-            rrs = [_mate_rescue_end(
-                ends[e]["dense"], ends[1 - e]["dense"], reads_l, quals_l,
-                lead_st["genome_p4"], lead_st["piece_starts"], ecfg, cfg, L,
-                self.genome_size, B, qlp_e=phred_log_prob_device(
-                    torch.stack([quals_l, quals_l.flip(1)], dim=1)))
-                for e, (reads_l, quals_l) in enumerate(
-                    ((reads0, quals0), (reads1, quals1)))]
+            rrs = []
+            for e, (reads_l, quals_l) in enumerate(((reads0, quals0),
+                                                    (reads1, quals1))):
+                with stats.span("mate_rescue"):
+                    rrs.append(_mate_rescue_end(
+                        ends[e]["dense"], ends[1 - e]["dense"], reads_l,
+                        quals_l, lead_st["genome_p4"],
+                        lead_st["piece_starts"], ecfg, cfg, L,
+                        self.genome_size, B, qlp_e=phred_log_prob_device(
+                            torch.stack([quals_l, quals_l.flip(1)], dim=1))))
             for e in (0, 1):
                 ends[e]["dense"] = _append_dense(ends[e]["dense"], rrs[e])
 
-        pr = pair_phase(ends[0]["dense"], ends[1]["dense"], cfg,
-                        ends[0]["popular"], ends[1]["popular"])
+        with stats.span("pair_join"):
+            pr = pair_phase(ends[0]["dense"], ends[1]["dense"], cfg,
+                            ends[0]["popular"], ends[1]["popular"])
         out = dict(pair_found=pr["pair_found"], pair_score=pr["score"],
                    pair_mapq=pr["mapq"], pair_log_pall=pr["log_pall"])
         rows = torch.arange(B, device=lead)
@@ -466,4 +487,6 @@ class ShardedPairedAligner(_ShardedBase):
             out[f"mapq{e}"] = torch.where(pf | (s["result"] != NOT_FOUND),
                                           mapq, 0).to(I32)
             out[f"truncated{e}"] = ends[e]["truncated"]
+        sg.count_batch(2 * B, [end["truncated"] for end in ends],
+                       batches=None)
         return out

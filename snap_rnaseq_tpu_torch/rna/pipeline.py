@@ -44,7 +44,7 @@ from ..models.paired_pipeline import PairedPipelineOptions
 from ..models.pipeline import PipelineOptions
 from ..models.single import SingleAligner, fetch, index_state
 from ..utils.async_stages import OrderedWorker, PrefetchIterator
-from ..utils.stats import AlignerStats, WaitProfile
+from ..utils.stats import AlignerStats, WaitProfile, span
 from .contamination import ContaminationFilter
 from .filter import (MULTIPLE_HITS, SINGLE_HIT, Alignment, AlignmentFilter,
                      BatchCharacterizer)
@@ -105,9 +105,8 @@ class _RnaBase:
 
     def _fetch(self, *outs):
         """Device result dicts -> numpy, timed as the wait on the device."""
-        td = time.time()
-        res = [fetch(o) for o in outs]
-        self.wait.device_s += time.time() - td
+        with span("pipeline.device"):
+            res = [fetch(o) for o in outs]
         return res
 
 
@@ -241,9 +240,8 @@ class RnaSingleEndPipeline(_RnaBase):
                         stats.not_found += 1
                     if res.status != NOT_FOUND:
                         stats.record_mapq(res.mapq, False)
-                tw = time.time()
-                builder.flush(out)
-                self.wait.write_s += time.time() - tw
+                with span("pipeline.write"):
+                    builder.flush(out)
 
             def emit_filtered(read):
                 stats.not_found += 1
@@ -498,9 +496,8 @@ class RnaPairedEndPipeline(_RnaBase):
                             stats.record_mapq(e.mapq, False)
                     if pres.aligned_as_pair:
                         stats.aligned_as_pairs += 2
-                tw = time.time()
-                builder.flush(out)
-                self.wait.write_s += time.time() - tw
+                with span("pipeline.write"):
+                    builder.flush(out)
 
             def emit_filtered(r0, r1):
                 stats.not_found += 2

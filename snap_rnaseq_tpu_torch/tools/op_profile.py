@@ -1,12 +1,13 @@
-"""Device time by operation and by category, and the device's idle gaps,
-for the paired engine at the bench's operating point: the counterpart of
-the JAX repo's tools/xprof_dump.py.
+"""Device time by operation, by category and by engine phase, and the
+device's idle gaps, for the paired engine at the bench's operating point:
+the counterpart of the JAX repo's tools/xprof_dump.py.
 
 `--batches` batches of `--batch-pairs` wgsim pairs (seeds 0..N-1) through
-PairedAligner(index, cand_per_read=64), one warm-up batch first.  The
-batches are timed once on the host's clock, then run again under
-torch.profiler (host operations with their Python stacks, and the card's
-operations).  Prints one JSON line:
+PairedAligner(index, cand_per_read=64) (with `--single`, their first
+reads through the single-end engine at its defaults, cand_per_read=64),
+one warm-up batch first.  The batches are timed once on the host's clock,
+then run again under torch.profiler (host operations with their Python
+stacks, and the card's operations).  Prints one JSON line:
   * the device self-time a batch (every device operation's time summed)
     and the reads/s that alone would allow (2 reads a pair);
   * a rollup by category: each of K1-K5 by kernel name, then sort,
@@ -16,26 +17,42 @@ operations).  Prints one JSON line:
   * the host's wall ms a batch and the device's idle share of it;
   * the GAPS longest idle gaps between device operations, each with the
     operations on either side and what the host had open across it: the
-    innermost profiled operation or Python frame covering the gap, the
-    innermost aten:: operation and the innermost frame of this package.
+    innermost program span (utils/stats.py's recorder), the innermost
+    profiled operation or Python frame covering the gap, the innermost
+    aten:: operation and the innermost frame of this package;
+  * a table by program span (the path of spans open, outermost first), a
+    batch: the host ms inside the span and in none of its children, the
+    device ms of the operations its runtime calls launched (linked by
+    their correlation ids), the idle ms of the gaps it was the innermost
+    span open across, and its host syncs and cudaMallocs (the runtime's
+    Synchronize and cudaMalloc calls inside it);
+  * the recorder's counters over the profiled batches, a batch: reads,
+    truncated reads, host syncs (engine.syncs), probe windows of the
+    probe-chain lookup (lookup.probe_windows, under
+    SNAP_TPU_LOOKUP=probe), and the caching allocator's cudaMallocs and
+    allocation retries across the batch spans (alloc.device_mallocs,
+    alloc.retries; on a card).
 On the card the JAX tool's xplane parsing becomes the profiler's device
 events; it raises if the profiler saw no device operation.  On the CPU
 (`--device cpu`) it profiles the host's aten:: operations by self time
 instead, labelled "timeline": "cpu", with no idle share and no gaps.
 
     python -m snap_rnaseq_tpu_torch.tools.op_profile [n_top=40]
-        [--batches 4] [--index DIR | --cache DIR]
+        [--batches 4] [--single] [--index DIR | --cache DIR]
         [--batch-pairs 1024] [--bases 64e6] [--device cuda|cpu]
 """
 from __future__ import annotations
 
 import argparse
+import bisect
 import json
 import re
 import sys
+import threading
 import time
 from collections import defaultdict
 
+from ..utils import stats
 from . import measure as m
 
 # device operation names (lower case) -> category, first match wins
@@ -77,6 +94,9 @@ PACKAGE = "snap_rnaseq_tpu_torch"
 GAPS = 10                 # idle gaps listed
 # a Python frame's event name: "path/to/file.py(123): function"
 PY_FRAME = re.compile(r"\.py\(\d+\): ")
+# a CUDA runtime or driver call's event name (cudaLaunchKernel,
+# cudaMemcpyAsync, cudaStreamSynchronize, cuLaunchKernel, ...)
+RUNTIME_CALL = re.compile(r"cu[A-Z]|cuda[A-Z]")
 
 
 def category(name: str, timeline: str = "device") -> str:
@@ -151,23 +171,143 @@ def host_across(cpu_events, g0, g1) -> dict:
                             and PY_FRAME.search(e[0])]))
 
 
-def idle_gaps(dev_events, cpu_events, n: int) -> list:
-    """The n longest gaps between consecutive device operations."""
+def all_gaps(dev_events) -> list:
+    """(length, operation before, operation after) of every gap between
+    consecutive device operations, in us, longest first."""
     evs = sorted(dev_events, key=lambda e: e[2])
     gaps = [(b[2] - a[3], a, b) for a, b in zip(evs, evs[1:])
             if b[2] > a[3]]
     gaps.sort(key=lambda g: -g[0])
+    return gaps
+
+
+def idle_gaps(dev_events, cpu_events, n: int, timeline=None) -> list:
+    """The n longest gaps between consecutive device operations, each
+    with what the host had open across it (and, given the program's
+    SpanTimeline, the innermost span open across it)."""
     return [dict(gap_ms=g / 1e3, after=_short(a[0], 100),
                  before=_short(b[0], 100),
+                 **({} if timeline is None else
+                    dict(span=timeline.label(timeline.across(a[3], b[2])))),
                  **host_across(cpu_events, a[3], b[2]))
-            for g, a, b in gaps[:n]]
+            for g, a, b in all_gaps(dev_events)[:n]]
+
+
+class SpanTimeline:
+    """The program's spans of one thread (utils/stats.py recorded()) as
+    the path of spans open at each moment, in us on the profiler's host
+    clock (both are time.time_ns())."""
+
+    def __init__(self, spans: list, thread: str):
+        self.spans = [s for s in spans if s["thread"] == thread]
+        pts = sorted([(s["start_ns"] / 1e3, 1, i)
+                      for i, s in enumerate(self.spans)]
+                     + [(s["end_ns"] / 1e3, 0, i)
+                        for i, s in enumerate(self.spans)])
+        self.times, self.paths, self.parent = [], [], {}
+        stack = []
+        for t, start, i in pts:
+            if start:
+                self.parent[i] = stack[-1] if stack else None
+                stack.append(i)
+            else:
+                stack.remove(i)
+            self.times.append(t)
+            self.paths.append(tuple(stack))
+
+    def at(self, t: float) -> tuple:
+        j = bisect.bisect_right(self.times, t) - 1
+        return self.paths[j] if j >= 0 else ()
+
+    def across(self, t0: float, t1: float) -> tuple:
+        """The spans open across all of [t0, t1], outermost first."""
+        a, b = self.at(t0), self.at(t1)
+        n = 0
+        while n < min(len(a), len(b)) and a[n] == b[n]:
+            n += 1
+        return a[:n]
+
+    def label(self, path: tuple) -> str:
+        return (" / ".join(self.spans[i]["name"] for i in path)
+                if path else "(no span)")
+
+    def path_of(self, i: int) -> tuple:
+        out = []
+        while i is not None:
+            out.append(i)
+            i = self.parent[i]
+        return tuple(reversed(out))
+
+
+def linked_events(prof) -> tuple:
+    """(runtime calls, device operations) of a profile: (name, start us,
+    end us, correlation id) each; a device operation carries its
+    launching call's CUPTI correlation id (or, where that finds no call,
+    the id of the aten:: operation it belongs to, with the operation's
+    times standing in for the call's)."""
+    from torch.autograd import DeviceType
+    calls, ops, dev = {}, {}, []
+    for e in prof.profiler.kineto_results.events():
+        name = e.name()
+        row = (name, e.start_ns() / 1e3, e.end_ns() / 1e3)
+        if e.device_type() == DeviceType.CUDA:
+            dev.append(row + (e.correlation_id(),
+                              e.linked_correlation_id()))
+        elif RUNTIME_CALL.match(name):
+            calls[e.correlation_id()] = row
+        else:
+            ops[e.correlation_id()] = row
+    linked = []
+    for name, t0, t1, corr, op in dev:
+        host = calls.get(corr) or ops.get(op)
+        linked.append((name, t0, t1, host[1] if host else None))
+    return list(calls.values()), linked
+
+
+def phase_table(prof, timeline: SpanTimeline, gaps, n_batches: int,
+                cuda: bool) -> list:
+    """[span path, host ms, device ms, idle ms, syncs, mallocs] a batch,
+    by the innermost program span, in order of the spans' starts; the
+    device columns None on the CPU."""
+    rows = defaultdict(lambda: [0.0, 0.0, 0.0, 0, 0])
+    first = {}
+
+    def row(path):
+        label = timeline.label(path)
+        t = timeline.spans[path[-1]]["start_ns"] if path else -1
+        first[label] = min(first.get(label, t), t)
+        return rows[label]
+    for i, s in enumerate(timeline.spans):
+        us = (s["end_ns"] - s["start_ns"]) / 1e3
+        row(timeline.path_of(i))[0] += us
+        if timeline.parent[i] is not None:
+            row(timeline.path_of(timeline.parent[i]))[0] -= us
+    if cuda:
+        calls, linked = linked_events(prof)
+        for name, t0, t1, host_t in linked:
+            r = (row(timeline.at(host_t)) if host_t is not None
+                 else rows["(not linked)"])
+            r[1] += t1 - t0
+        for g, a, b in gaps:
+            row(timeline.across(a[3], b[2]))[2] += g
+        for name, t0, _t1 in calls:
+            if "Synchronize" in name:
+                row(timeline.at(t0))[3] += 1
+            elif name.startswith("cudaMalloc"):
+                row(timeline.at(t0))[4] += 1
+    per = lambda x: x / n_batches if cuda else None
+    return [[label, rows[label][0] / 1e3 / n_batches,
+             *(per(x) for x in (rows[label][1] / 1e3, rows[label][2] / 1e3,
+                                rows[label][3], rows[label][4]))]
+            for label in sorted(rows, key=lambda k: first.get(k, 1 << 62))]
 
 
 def run(index, *, device="cuda", bases=m.GENOME_BASES,
         batch_pairs=m.BATCH_PAIRS, n_batches=4, n_top=40,
-        base=None) -> dict:
+        base=None, single=False) -> dict:
     """The profile's JSON line dict.  `base`: an aligner whose device copy
-    of the index is used (and whose config, cand_per_read=64 aside)."""
+    of the index is used (and whose config, cand_per_read=64 aside);
+    `single`: the single-end engine on each batch's first reads."""
     from ..models.paired import PairedAligner
     from ..models.single import resolve_device
     dev = resolve_device(device)
@@ -175,6 +315,9 @@ def run(index, *, device="cuda", bases=m.GENOME_BASES,
           if base is not None else
           PairedAligner(index, device=dev, cand_per_read=m.CAND_PER_READ))
     batches = m.pair_batches(index, bases, batch_pairs, dev, n_batches)
+    if single:
+        pa = m.single_on_state(pa, cand_per_read=m.CAND_PER_READ)
+        batches = [b[:2] for b in batches]
 
     def all_batches():
         for b in batches:
@@ -206,8 +349,11 @@ def run(index, *, device="cuda", bases=m.GENOME_BASES,
     for name, (us, _) in per_op.items():
         rollup[category(name, timeline)] += per_batch(us)
     top = sorted(per_op.items(), key=lambda kv: -kv[1][0])[:n_top]
-    gaps = idle_gaps(dev_events, host_events(prof), GAPS) if cuda else None
+    rec = stats.recorded()
+    spans = SpanTimeline(rec["spans"], threading.current_thread().name)
+    gaps = all_gaps(dev_events) if cuda else []
     return dict(
+        engine="single" if single else "paired",
         timeline=timeline, batches=n_batches, batch_pairs=batch_pairs,
         cand_per_read=pa.cfg.cand_per_read, self_ms_per_batch=total_ms,
         reads_per_sec_at_self_time=(2 * batch_pairs * 1e3 / total_ms
@@ -218,7 +364,11 @@ def run(index, *, device="cuda", bases=m.GENOME_BASES,
         rollup=dict(sorted(rollup.items(), key=lambda kv: -kv[1])),
         top=[[_short(n), per_batch(us), c / n_batches]
              for n, (us, c) in top],
-        gaps=gaps, device=m.device_info(dev))
+        gaps=(idle_gaps(dev_events, host_events(prof), GAPS, spans)
+              if cuda else None),
+        phases=phase_table(prof, spans, gaps, n_batches, cuda),
+        counters={k: v / n_batches for k, v in sorted(rec["counts"].items())},
+        device=m.device_info(dev))
 
 
 def main(argv=None) -> int:
@@ -226,6 +376,8 @@ def main(argv=None) -> int:
     p.add_argument("n_top", type=int, nargs="?", default=40)
     m.add_common_args(p)
     p.add_argument("--batches", type=int, default=4)
+    p.add_argument("--single", action="store_true",
+                   help="the single-end engine on each pair's first read")
     a = p.parse_args(argv)
     from ..models.single import resolve_device
     dev = resolve_device(a.device)
@@ -233,11 +385,13 @@ def main(argv=None) -> int:
     index, index_s, src = m.open_index(a.index, a.cache, bases, dev)
     m.log(f"op_profile: index {src} in {index_s:.1f} s")
     line = run(index, device=dev, bases=bases, batch_pairs=a.batch_pairs,
-               n_batches=a.batches, n_top=a.n_top)
+               n_batches=a.batches, n_top=a.n_top, single=a.single)
     m.log(f"{line['timeline']} self-time {line['self_ms_per_batch']:.3f} "
           f"ms a batch; by category (ms a batch):")
     for cat, ms in line["rollup"].items():
         m.log(f"  {ms:9.3f}  {cat}")
+    m.log("program counters a batch: " + ", ".join(
+        f"{k} {v:g}" for k, v in line["counters"].items()))
     print(json.dumps(line), flush=True)
     return 0
 

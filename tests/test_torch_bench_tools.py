@@ -353,6 +353,9 @@ def test_op_profile_cpu_timeline(blocked):
     assert set(line["rollup"]) <= {
         "sort", "scatter", "gather/index", "reductions",
         "copies and memsets", "elementwise", "other"}
+    c = line["counters"]
+    assert c["engine.batches"] == 1
+    assert c["engine.reads"] == 2 * line["batch_pairs"]
 
 
 def test_op_profile_categories():

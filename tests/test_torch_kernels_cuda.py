@@ -822,3 +822,86 @@ def test_engine_ab_onehot_on_card_equals_default(card, bench_world):
         assert kernels.LAUNCHES[name] > 0, name
     assert kernels.LAUNCHES["K1_lv_lanes"] == 0
     _same_outputs(got, want)
+
+
+def _sync_case(case, card, bench_world, monkeypatch):
+    """A function running one batch of `case` on the card: the bench's
+    paired and single-end engines (cuckoo lookup), the paired engine on
+    the probe-chain lookup, and the index-sharded paired mesh on it."""
+    from snap_rnaseq_tpu_torch.models.paired import PairedAligner
+    from snap_rnaseq_tpu_torch.parallel import sharded
+    from snap_rnaseq_tpu_torch.tools import measure
+    from snap_rnaseq_tpu_torch.utils.synth_genome import wgsim_pairs
+    if case in ("paired", "single"):
+        index, b = bench_world
+        b = [torch.from_numpy(x).to(card) for x in b]
+        al = PairedAligner(index, device=card, cand_per_read=64)
+        if case == "single":
+            al, b = measure.single_on_state(al, cand_per_read=64), b[:2]
+        return lambda: al.align_batch_device(*b)
+    monkeypatch.setenv("SNAP_TPU_LOOKUP", "probe")
+    codes = hg_like_genome(300_000, seed=7)
+    index = build_index(genome_from_codes(codes), seed_len=20,
+                        load_factor=0.98)
+    r0, q0, r1, q1, _, _ = wgsim_pairs(codes, 256, 100, seed=3)
+    if case == "paired_probe":
+        al = PairedAligner(index, device=card)
+    else:
+        al = sharded.ShardedPairedAligner(
+            index, sharded.make_mesh(1, 2, device=card))
+        q0, q1 = q0 + 33, q1 + 33
+    b = [torch.from_numpy(x).to(card) for x in (r0, q0, r1, q1)]
+    return lambda: al.align_batch_device(*b)
+
+
+@pytest.mark.parametrize("case", ["paired", "single", "paired_probe",
+                                  "mesh_probe"])
+def test_recorder_counts_every_host_sync(card, bench_world, case,
+                                         monkeypatch):
+    """Under torch.cuda's sync debug mode each synchronizing call of a
+    batch warns.  Every warning must fall inside one of the recorder's
+    sync.<site> spans (utils/stats.py), each span must take as many as it
+    counts, and together they must equal the batch's engine.syncs: the
+    sync counts that engine.syncs_per_batch and mesh.syncs_per_batch
+    report are the card's own."""
+    import traceback
+    import warnings
+    from snap_rnaseq_tpu_torch.utils import stats
+    run = _sync_case(case, card, bench_world, monkeypatch)
+    run()                                  # warm-up: loads and caches
+    torch.cuda.synchronize()
+    stack = stats.RECORDER._thread().stack
+    seen, stray = {}, []                   # sync span -> warnings in it
+
+    def hook(message, category, filename, lineno, file=None, line=None):
+        if "called a synchronizing CUDA operation" not in str(message):
+            return                         # e.g. the mode's first notice
+        open_syncs = [s for s in stack if s.name.startswith("sync.")]
+        if open_syncs:
+            seen[open_syncs[-1]] = seen.get(open_syncs[-1], 0) + 1
+        else:
+            stray.append(f"{message}\n" + "".join(
+                traceback.format_stack(limit=8)))
+    before = stats.totals()
+    with warnings.catch_warnings():
+        warnings.simplefilter("always")
+        warnings.showwarning = hook
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            run()
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+    after = stats.totals()
+    counted = (after["counts"].get(stats.SYNCS, 0)
+               - before["counts"].get(stats.SYNCS, 0))
+    warned, calls = {}, {}
+    for s, n in seen.items():
+        warned[s.name] = warned.get(s.name, 0) + n
+    for name, (c, _s) in after["spans"].items():
+        if name.startswith("sync."):
+            calls[name] = c - before["spans"].get(name, (0, 0))[0]
+    assert not stray, stray
+    assert {(s.name, n) for s, n in seen.items() if n != s.syncs} == set()
+    assert sum(seen.values()) == counted > 0, (warned, calls)
+    if case.endswith("_probe"):
+        assert "sync.probe_pending" in warned, warned
