@@ -441,6 +441,44 @@ def check_k2(dev, rng):
                 within_e_max=int((want <= 16).sum()))
 
 
+def check_k6(dev, rng):
+    """K6 on 8,192 reads x 64 slots at the single path's width (P = 100,
+    e_max 16): reads cut from a random 1 Mb genome with 3% substitutions,
+    half of them reverse complemented; half of each row's slots at the
+    read's origin in its orientation, the rest anywhere up to 600 bases
+    past the table in either, a fifth dead."""
+    import torch
+    from snap_rnaseq_tpu_torch.models.single import _COMP_LUT
+    from snap_rnaseq_tpu_torch.ops import rowwise_front as rf
+    from snap_rnaseq_tpu_torch.ops import u32
+    from snap_rnaseq_tpu_torch.ops.genome_gather import pack_genome_4bit
+    R, W, P, M, n = 8192, 64, READ_LEN, 16, 1_000_000
+    codes = rng.integers(0, 4, n, dtype=np.uint8)
+    origin = rng.integers(0, n - P, R)
+    reads = codes[origin[:, None] + np.arange(P)]
+    sub = rng.random((R, P)) < 0.03
+    reads[sub] = (reads[sub] + 1) % 4
+    rc = rng.random(R) < 0.5
+    reads[rc] = _COMP_LUT[reads[rc, ::-1]]
+    loc = rng.integers(0, n + 600, (R, W)).astype(np.int32)
+    loc[:, :W // 2] = origin[:, None]
+    dirs = rng.integers(0, 2, (R, W)).astype(np.int32)
+    dirs[:, :W // 2] = rc[:, None]
+    to = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+    args = (u32.from_numpy(pack_genome_4bit(codes), dev), to(loc), to(dirs),
+            to(rng.random((R, W)) >= 0.2), to(reads), to(_COMP_LUT),
+            to(-rng.uniform(0, 5, (R, 2, P)).astype(np.float32)))
+    got = rf.rowwise_front_cuda(*args, M=M, big=False)
+    want = rf.rowwise_front_plain(*args, M=M, big=False)
+    for name, g, w in zip(("K6 win_words", "K6 sel", "K6 ham"), got, want):
+        assert_same(name, g, w)
+    ok = want[2] <= M
+    return dict(name="K6_rowwise_front", rows=R * W,
+                max_abs_err=logp_err("K6_rowwise_front", got[3][ok],
+                                     want[3][ok]),
+                within_e_max=int(ok.sum()))
+
+
 K3_SCRIPT = ("distance", "e_final", "d_final", "net_indel", "acts",
              "matched", "start_run")
 
@@ -717,7 +755,8 @@ def check_k5(dev, rng):
 MAX_RECORDED_SHAPES = 64
 WRAPPERS = (("lv_cuda", "lv_lanes"), ("lv_cuda", "lv_cigar"),
             ("bitpar", "bitpar_packed"), ("bitpar", "bitpar_rows"),
-            ("lv_cuda", "lv_lanes_onehot"))
+            ("lv_cuda", "lv_lanes_onehot"),
+            ("rowwise_front", "rowwise_front_cuda"))
 KERNEL_INFO = {   # name: (source, the TPU kernel it replaces)
     "K1_lv_lanes": ("snap_rnaseq_tpu_torch/csrc/lv_lanes.cu",
                     "snap_rnaseq_tpu/ops/lv_pallas.py:374"),
@@ -732,6 +771,9 @@ KERNEL_INFO = {   # name: (source, the TPU kernel it replaces)
                        ":179)"),
     "K5_lv_onehot": ("snap_rnaseq_tpu_torch/csrc/lv_onehot.cu",
                      "snap_rnaseq_tpu/ops/lv_pallas.py:567"),
+    "K6_rowwise_front": ("snap_rnaseq_tpu_torch/csrc/rowwise_front.cu",
+                         "none: the front of snap_rnaseq_tpu/models/"
+                         "single.py rowwise_score_phase, fused by XLA"),
 }
 
 
@@ -741,7 +783,8 @@ def kernel_of_call(attr, a):
         return "K2_bitpar_rescue" if rescue else "K2_bitpar_packed"
     return {"lv_lanes": "K1_lv_lanes", "lv_cigar": "K3_lv_cigar",
             "bitpar_rows": "K4_bitpar_rows",
-            "lv_lanes_onehot": "K5_lv_onehot"}[attr]
+            "lv_lanes_onehot": "K5_lv_onehot",
+            "rowwise_front_cuda": "K6_rowwise_front"}[attr]
 
 
 def host_copy(t):
@@ -758,12 +801,14 @@ def recorded_calls():
     {"kernel", "fn", "args", "n"}}; the wrappers' own launch counters are
     untouched.  The copies go to pinned host memory in stream order, so
     the run neither waits for them nor counts them in its peak device
-    memory; check_path_calls moves them back to the card."""
+    memory; check_path_calls moves them back to the card.  A genome that
+    K6 reads (up to 2.1 GB of words) is held as it is during the run and
+    copied to the host once when it ends, however many shapes read it."""
     import inspect
     import threading
     import torch
-    from snap_rnaseq_tpu_torch.ops import bitpar, lv_cuda
-    mods = dict(lv_cuda=lv_cuda, bitpar=bitpar)
+    from snap_rnaseq_tpu_torch.ops import bitpar, lv_cuda, rowwise_front
+    mods = dict(lv_cuda=lv_cuda, bitpar=bitpar, rowwise_front=rowwise_front)
     calls, saved, lock = {}, [], threading.Lock()
 
     def wrap(mod, attr):
@@ -782,8 +827,9 @@ def recorded_calls():
                 if rec is None and len(calls) < MAX_RECORDED_SHAPES:
                     rec = calls[key] = dict(
                         kernel=kernel_of_call(attr, a), fn=fn, n=0,
-                        args={k: host_copy(v) if isinstance(v, torch.Tensor)
-                              else v for k, v in a.items()})
+                        args={k: v if k == "genome_p4" else host_copy(v)
+                              if isinstance(v, torch.Tensor) else v
+                              for k, v in a.items()})
                 if rec is not None:
                     rec["n"] += 1
             return fn(*args, **kw)
@@ -797,6 +843,14 @@ def recorded_calls():
     finally:
         for mod, attr, fn in saved:
             setattr(mod, attr, fn)
+        genomes = {}
+        for rec in calls.values():
+            g = rec["args"].get("genome_p4")
+            if g is not None:
+                key = (g.data_ptr(), g.numel())
+                if key not in genomes:
+                    genomes[key] = g.cpu()
+                rec["args"]["genome_p4"] = genomes[key]
 
 
 def lv_levels(want, k, e_max):
@@ -813,6 +867,8 @@ def _plain_and_work(kernel, a):
     kernel's result, and the work this call's data needs: (plain fn,
     compare(got, want) -> max_abs_err, (bytes, operations)(want))."""
     from snap_rnaseq_tpu_torch.ops import bitpar, lv
+    if kernel == "K6_rowwise_front":
+        return _front_plain_and_work(a)
     B, P = a["pattern"].shape
     if kernel in ("K1_lv_lanes", "K3_lv_cigar", "K5_lv_onehot"):
         cigar = kernel == "K3_lv_cigar"
@@ -865,9 +921,38 @@ def _plain_and_work(kernel, a):
                                          bitpar_ops(B, TXT, P))
 
 
+def _front_plain_and_work(a):
+    """_plain_and_work for K6: words, sel and ham equal; logp_f's largest
+    difference where ham <= M (the slots the caller reads); the bytes a
+    slot needs: its n_w genome words once, loc, dir, live, the read once a
+    row, qlp at its mismatches where ham <= M, and the four outputs."""
+    from snap_rnaseq_tpu_torch.ops import rowwise_front as rf
+    M = a["M"]
+    plain = functools.partial(rf.rowwise_front_plain, **a)
+
+    def compare(got, want):
+        for name, g, w in zip(("K6 win_words", "K6 sel", "K6 ham"), got,
+                              want):
+            assert_same(name, g, w)
+        ok = want[2] <= M
+        return logp_err("K6_rowwise_front", got[3][ok], want[3][ok])
+
+    def work(want):
+        R, W = a["dir_"].shape
+        P = a["reads"].shape[1]
+        C, n_w = want[0].shape
+        fast = want[2] <= M
+        q_bytes = 4 * int(want[2][fast].sum())
+        return (C * (2 * 4 * n_w + 9 + P + 8) + R * P + q_bytes, 0)
+    return plain, compare, work
+
+
 def call_shape(a):
     """[rows, P, text columns, e_max] for LV, [rows, P, TXT, packed_off]
-    for K2, [rows, P, TXT] for K4."""
+    for K2, [rows, P, TXT] for K4, [rows, slots a row, P, M] for K6."""
+    if "M" in a:
+        return [int(x) for x in a["dir_"].shape] + [
+            int(a["reads"].shape[1]), a["M"]]
     B, P = (int(x) for x in a["pattern"].shape)
     if "e_max" in a:
         return [B, P, int(a["text"].shape[1]), a["e_max"]]
@@ -1246,7 +1331,8 @@ def write_fasta(path, codes, name="ref"):
         f.write(b"\n")
 
 
-SINGLE_PATH = ("K1_lv_lanes", "K2_bitpar_packed", "K3_lv_cigar")
+SINGLE_PATH = ("K1_lv_lanes", "K2_bitpar_packed", "K3_lv_cigar",
+               "K6_rowwise_front")
 PAIRED_PATH = SINGLE_PATH + ("K2_bitpar_rescue",)
 STRINGZ_PATH = ("K4_bitpar_rows",)
 
@@ -1438,7 +1524,8 @@ def paired_real_phase(tmp, codes, idx, index_s, n_pairs, batch,
 # ---------------------------------------------------------------- phase 4d
 
 FLAT_PATH = ("K4_bitpar_rows", "K1_lv_lanes")
-RESCUE_CORE = ("K1_lv_lanes", "K2_bitpar_packed", "K2_bitpar_rescue")
+RESCUE_CORE = ("K1_lv_lanes", "K2_bitpar_packed", "K2_bitpar_rescue",
+               "K6_rowwise_front")
 BAM_PATH = RESCUE_CORE + ("K3_lv_cigar",)
 
 
@@ -1760,7 +1847,7 @@ def flat_phase(tmp, idx, codes, batch, device="cuda"):
 
 # every worker's batches launch K1 and K2; K3 (indel CIGARs) launches in
 # a few of 4b's batches only (4 of 16), so it is required of the run
-HOSTS_WORKER_PATH = ("K1_lv_lanes", "K2_bitpar_packed")
+HOSTS_WORKER_PATH = ("K1_lv_lanes", "K2_bitpar_packed", "K6_rowwise_front")
 HOSTS_PATH = HOSTS_WORKER_PATH + ("K3_lv_cigar",)
 # the JAX package's keys of the `multihost:` dict
 MERGED_KEYS = {"total_reads", "useful_reads", "single_hits", "multi_hits",
@@ -2099,7 +2186,7 @@ def distance_hist_phase(tmp, idx, device="cuda"):
 # ---------------------------------------------------------------- phase 4i
 
 MESH_SHAPES = ((1, 2), (1, 4), (2, 2))
-MESH_CORE = ("K1_lv_lanes", "K2_bitpar_packed")
+MESH_CORE = ("K1_lv_lanes", "K2_bitpar_packed", "K6_rowwise_front")
 # the per-read results both engines give (the mesh folds its scalar
 # counters into per-read vectors; truncation counts differ by design)
 SINGLE_KEYS = ("result", "loc", "direction", "score", "mapq", "log_pbest",
@@ -2869,7 +2956,8 @@ HG_EXACT = ("total_slots", "occupied_slots", "overflow_entries", "ht_bytes",
 HG_FLOORS = dict(recall0=0.97, recall1=0.97, pair_found_rate=0.99)
 HG_COUNTS = ("pos0_ok", "pos1_ok", "pair_found", "both_pos_ok",
              "truncated0", "truncated1", "mapq_ge10_ok", "mapq_ge10")
-HG_PATH = ("K1_lv_lanes", "K2_bitpar_packed", "K2_bitpar_rescue")
+HG_PATH = ("K1_lv_lanes", "K2_bitpar_packed", "K2_bitpar_rescue",
+           "K6_rowwise_front")
 
 
 def hg_genome(t_start):
@@ -2982,8 +3070,9 @@ def hg_phase(genome_future, device="cuda"):
 # the kernels each must launch; the other stages (engine_ab's default and
 # se, which bench_pe and the single-end engines' paths cover,
 # phase_profile's paired phases, op_profile) run uncounted
-SE_CORE = ("K1_lv_lanes", "K2_bitpar_packed")
-ONEHOT_RESCUE = ("K5_lv_onehot", "K2_bitpar_packed", "K2_bitpar_rescue")
+SE_CORE = ("K1_lv_lanes", "K2_bitpar_packed", "K6_rowwise_front")
+ONEHOT_RESCUE = ("K5_lv_onehot", "K2_bitpar_packed", "K2_bitpar_rescue",
+                 "K6_rowwise_front")
 TOOL_PATHS = {
     ("bench", "pe"): ("bench_pe", RESCUE_CORE),
     ("bench", "se"): ("bench_se", SE_CORE),
@@ -3104,7 +3193,8 @@ def tools_phase(tmp, idx, device="cuda"):
 # ---------------------------------------------------------------- phase 4c
 
 RNA_GENES = 1300
-ONEHOT_PATH = ("K5_lv_onehot", "K2_bitpar_packed", "K3_lv_cigar")
+ONEHOT_PATH = ("K5_lv_onehot", "K2_bitpar_packed", "K3_lv_cigar",
+               "K6_rowwise_front")
 
 
 def rna_annotation(n_bases, rng):
@@ -3537,7 +3627,7 @@ def main():
     checks = [check_k1(dev, rng), check_k1_rescue(dev, rng),
               check_k2(dev, rng), check_k2_rescue(dev, rng),
               check_k3(dev, rng), check_k4(dev, rng), check_k5(dev, rng),
-              check_long_reads(dev, rng)]
+              check_k6(dev, rng), check_long_reads(dev, rng)]
     for c in checks:
         log(f"{c['name']}: {c['rows']} rows match the plain version, "
             f"max_abs_err {c['max_abs_err']}")

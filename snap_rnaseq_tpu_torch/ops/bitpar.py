@@ -36,6 +36,7 @@ import torch
 
 from ..constants import MAX_READ_LENGTH
 from . import u32
+from .genome_gather import unpack_words
 
 
 def pack_peq(pattern: torch.Tensor, P: int) -> torch.Tensor:
@@ -161,13 +162,6 @@ def bitpar_distance_plain(pattern, text, t_len, *, P: int,
         enc = (score * 4096 + col) if track_pos else score
         best = torch.minimum(best, torch.where(col < t_len, enc, big))
     return best
-
-
-def unpack_words(words: torch.Tensor) -> torch.Tensor:
-    """(C, n_w) packed words -> (C, 8 * n_w) u8 nibble codes."""
-    shifts = torch.arange(8, dtype=torch.int32, device=words.device) * 4
-    nib = (words[:, :, None] >> shifts[None, None, :]) & 15
-    return nib.to(torch.uint8).reshape(words.shape[0], -1)
 
 
 def bitpar_distance_words(pattern, words, t_len, *, P: int, TXT: int,

@@ -110,11 +110,14 @@ def gather_windows(genome_p4: torch.Tensor, loc: torch.Tensor, *, width: int,
         words = torch.where(((sub_off & (1 << b)) > 0)[:, None], shifted,
                             words)
 
-    shifts = torch.arange(BASES_PER_WORD, dtype=torch.int32,
-                          device=loc.device) * 4
-    nib = (words[:, :, None] >> shifts[None, None, :]) & 15
-    codes = nib.to(torch.uint8).reshape(words.shape[0],
-                                        n_w * BASES_PER_WORD)
+    codes = unpack_words(words)
     if return_packed:
         return codes[:, :width], words
     return codes[:, :width]
+
+
+def unpack_words(words: torch.Tensor) -> torch.Tensor:
+    """(C, n_w) packed words -> (C, 8 * n_w) u8 nibble codes, from the
+    words' little-endian bytes (two codes a byte, low nibble first)."""
+    b = words.contiguous().view(torch.uint8)
+    return torch.stack([b & 15, b >> 4], dim=2).reshape(words.shape[0], -1)

@@ -51,6 +51,7 @@ SOURCES = {
     "lv_cigar": "lv_cigar.cu",           # K3
     "bitpar_rows": "bitpar_rows.cu",      # K4
     "lv_onehot": "lv_onehot.cu",         # K5
+    "rowwise_front": "rowwise_front.cu",  # K6
 }
 
 
@@ -80,6 +81,8 @@ _SIGNATURES = {
                     + [_P, _P]),
     "lv_onehot": ("lv_onehot_launch", [_P] * 8 + [_I] * 4 + [_F] * 4
                   + [_P] * 6),
+    "rowwise_front": ("rowwise_front_launch", [_P, _I, _I] + [_P] * 6
+                      + [_I] * 6 + [_F] + [_P] * 5),
 }
 
 for _name in _DEFINES:
@@ -91,7 +94,8 @@ _SETTERS = {"lv_cigar": "lv_cigar_set_warps"}     # K3 warps per block
 
 # K2 counts its forward (prefilter) and its rescue launches apart
 LAUNCHES = {"K1_lv_lanes": 0, "K2_bitpar_packed": 0, "K2_bitpar_rescue": 0,
-            "K3_lv_cigar": 0, "K4_bitpar_rows": 0, "K5_lv_onehot": 0}
+            "K3_lv_cigar": 0, "K4_bitpar_rows": 0, "K5_lv_onehot": 0,
+            "K6_rowwise_front": 0}
 _LOCK = threading.Lock()
 _LAUNCHERS: dict = {}
 _LIBS: dict = {}

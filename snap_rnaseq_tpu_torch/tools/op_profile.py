@@ -10,7 +10,7 @@ then run again under torch.profiler (host operations with their Python
 stacks, and the card's operations).  Prints one JSON line:
   * the device self-time a batch (every device operation's time summed)
     and the reads/s that alone would allow (2 reads a pair);
-  * a rollup by category: each of K1-K5 by kernel name, then sort,
+  * a rollup by category: each of K1-K6 by kernel name, then sort,
     gather/index, scatter, gather/scatter (torch's one kernel for both),
     reductions, copies and memsets, elementwise, other;
   * the top-n operations by time, ms and count a batch;

@@ -396,6 +396,123 @@ def test_k3_at_cigar_width(card, B):
         assert (want.d_final < 0).any()
 
 
+def _front_case(card, rng, R, W, P, e_max, big, n=40_000, trim=False):
+    """rowwise_front's inputs on the card: R reads cut from a random genome
+    of n bases (codes 0-3, 1% each N and padding) with 0 to e_max + 3 substitutions and some N,
+    half of them reverse complemented; per row, half the slots at the
+    read's origin (+0-2 bases) in its orientation, the rest anywhere up to
+    600 bases past the table, either orientation; every row's first slot
+    below e_max, a fifth of the slots dead.  big: the sequence lifted so
+    that its middle sits at 2^31 (locations of both int32 signs; a start
+    below e_max wraps past 2^32).  trim: the words cut short of a
+    ROW_WORDS multiple (reads past the table clamp to the last word).
+    Returns the seven input tensors, the genome size and the lift."""
+    from snap_rnaseq_tpu_torch.models.single import _COMP_LUT
+    codes = rng.choice(6, n, p=[0.245] * 4 + [0.01] * 2).astype(np.uint8)
+    p4 = pack_genome_4bit(codes)
+    if trim:
+        p4 = p4[:-5]
+    base = ((1 << 31) - n // 2) // 512 * 512 if big else 0
+    genome = torch.full((base // 8 + p4.size,), u32.const(0x55555555),
+                        dtype=torch.int32, device=card)
+    genome[base // 8:] = u32.from_numpy(p4, card)
+    origin = rng.integers(0, n - P - 4, R)
+    reads = codes[origin[:, None] + np.arange(P)]
+    # about 0 to e_max + 3 substitutions a read, and some N
+    rate = rng.integers(0, e_max + 4, R)[:, None] / P
+    sub = rng.random((R, P)) < rate
+    reads[sub] = (reads[sub] + rng.integers(1, 4, int(sub.sum()))) % 4
+    reads[rng.random((R, P)) < 0.002] = 4
+    rc = rng.random(R) < 0.5
+    comp = np.asarray(_COMP_LUT)
+    reads[rc] = comp[reads[rc, ::-1]]
+    loc = rng.integers(0, n + 600, (R, W)).astype(np.int64)
+    dir_ = rng.integers(0, 2, (R, W)).astype(np.int32)
+    half = W // 2
+    loc[:, :half] = origin[:, None] + rng.integers(0, 3, (R, half))
+    dir_[:, :half] = rc[:, None]
+    loc += base
+    loc[:, 0] = rng.integers(0, e_max, R)
+    live = rng.random((R, W)) >= 0.2
+    loc[~live] = rng.integers(-(1 << 31), 1 << 31, int((~live).sum()))
+    to = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(card)
+    loc32 = (loc & 0xFFFFFFFF).astype(np.uint32).view(np.int32)
+    qlp = -rng.uniform(0.0, 5.0, (R, 2, P)).astype(np.float32)
+    args = (genome, to(loc32), to(dir_), to(live), to(reads.astype(np.uint8)),
+            to(comp), to(qlp))
+    return args, base + n, base
+
+
+def _same_front(got, want, e_max):
+    """win_words, sel and ham equal; logp_f within 1e-4 where ham <= e_max
+    (the only slots whose logp_f is read): fp32 sums of up to P terms, K6
+    in position order, the plain version in torch's reduction order."""
+    for name, g, w in zip(("win_words", "sel", "ham"), got, want):
+        assert torch.equal(g, w), name
+    ok = want[2] <= e_max
+    assert ok.any() and (~ok).any()
+    torch.testing.assert_close(got[3][ok], want[3][ok], rtol=0, atol=1e-4)
+
+
+@pytest.mark.parametrize("P", [100, 150, 512])
+@pytest.mark.parametrize("e_max", [16, 17, 31])
+@pytest.mark.parametrize("big", [False, True])
+def test_k6_matches_plain(card, big, e_max, P):
+    """K6 against its plain version: every slot's window words, oriented
+    read, mismatch count and closed-form log-probability, at starts below
+    e_max, past the table's end, both orientations and dead slots; the
+    words cut short of ROW_WORDS at e_max 16 without the lift."""
+    from snap_rnaseq_tpu_torch.ops import rowwise_front as rf
+    rng = np.random.default_rng(1000 * big + 10 * e_max + P)
+    args, _, _ = _front_case(card, rng, 300, 64, P, e_max, big,
+                             trim=e_max == 16 and not big)
+    before = kernels.LAUNCHES["K6_rowwise_front"]
+    got = rf.rowwise_front(*args, M=e_max, big=big)
+    assert kernels.LAUNCHES["K6_rowwise_front"] == before + 1
+    _same_front(got, rf.rowwise_front_plain(*args, M=e_max, big=big), e_max)
+
+
+def test_k6_at_the_cells_shape(card):
+    """K6 at the 64 Mb cells' batch: 131,072 reads x 64 slots, P 100,
+    e_max 17, on a 4 Mb genome."""
+    from snap_rnaseq_tpu_torch.ops import rowwise_front as rf
+    rng = np.random.default_rng(17)
+    args, _, _ = _front_case(card, rng, 131_072, 64, 100, 17, False,
+                             n=4_000_000)
+    got = rf.rowwise_front(*args, M=17, big=False)
+    _same_front(got, rf.rowwise_front_plain(*args, M=17, big=False), 17)
+
+
+@pytest.mark.parametrize("big", [False, True])
+def test_rowwise_score_phase_on_card_equals_cpu(card, big):
+    """rowwise_score_phase with K6 (and K2, K1) on the card against the
+    same phase on the CPU (the plain front) on the same candidate table:
+    score, scored_ok, loc_adj, n_fast and the overflow equal."""
+    from snap_rnaseq_tpu_torch.models import single as sg
+    rng = np.random.default_rng(31 + big)
+    R, W, P = 512, 64, 100
+    args, genome_size, base = _front_case(card, rng, R, W, P, 17, big)
+    genome, loc, dir_, live, reads, _comp, _qlp = args
+    cfg = sg.SingleAlignerConfig(seed_len=20, max_k=15)          # e_max 17
+    assert cfg.e_max == 17
+    off = torch.from_numpy(rng.integers(0, P - 20, (R, W)).astype(np.int32))
+    quals = torch.from_numpy(rng.integers(40, 74, (R, P)).astype(np.uint8))
+    pieces = u32.from_numpy(np.array([base, base + 20_000], np.uint32))
+    u2 = dict(loc=loc, dir=dir_, live=live, off=off.to(card))
+    before = kernels.LAUNCHES["K6_rowwise_front"]
+    got = sg.rowwise_score_phase(u2, reads, quals.to(card), genome,
+                                 pieces.to(card), cfg, 20, P, genome_size)
+    assert kernels.LAUNCHES["K6_rowwise_front"] == before + 1
+    cpu = lambda d: {k: v.cpu() for k, v in d.items()}
+    want = sg.rowwise_score_phase(cpu(u2), reads.cpu(), quals, genome.cpu(),
+                                  pieces, cfg, 20, P, genome_size)
+    for k in ("score", "scored_ok", "loc_adj", "n_fast", "score_overflow"):
+        assert torch.equal(got[k].cpu(), want[k]), k
+    torch.testing.assert_close(got["logp"].cpu(), want["logp"], rtol=0,
+                               atol=1e-4)
+    assert 0 < int(want["n_fast"]) < int(want["scored_ok"].sum())
+
+
 @pytest.mark.parametrize("P", [150, 250])
 def test_lv_kernels_long_reads(card, P, monkeypatch):
     """K1 and K5 at the single and paired e_max (16, 17) with free
@@ -466,6 +583,7 @@ def test_aligner_on_card_equals_cpu(card, L):
     got = SingleAligner(index, device=card).align_batch(reads, quals)
     assert kernels.LAUNCHES["K1_lv_lanes"] > 0
     assert kernels.LAUNCHES["K2_bitpar_packed"] > 0
+    assert kernels.LAUNCHES["K6_rowwise_front"] > 0
     want = SingleAligner(index, device="cpu").align_batch(reads, quals)
     for k, v in want.items():
         if v.dtype == np.float32:
@@ -489,7 +607,8 @@ def test_paired_aligner_on_card_equals_cpu(card, L):
         r1[i, 5::17] = (r1[i, 5::17] + 1) % 4
     kernels.reset_launches()
     got = PairedAligner(index, device=card).align_batch(r0, q0, r1, q1)
-    for name in ("K1_lv_lanes", "K2_bitpar_packed", "K2_bitpar_rescue"):
+    for name in ("K1_lv_lanes", "K2_bitpar_packed", "K2_bitpar_rescue",
+                 "K6_rowwise_front"):
         assert kernels.LAUNCHES[name] > 0, name
     want = PairedAligner(index, device="cpu").align_batch(r0, q0, r1, q1)
     for k, v in want.items():
@@ -634,9 +753,11 @@ def test_mesh_on_card_equals_cpu(card, kind):
         r1[i, 5::17] = (r1[i, 5::17] + 1) % 4
     make, args, path = (
         (sharded.ShardedSingleAligner, (r0, q0 + 33),
-         ("K1_lv_lanes", "K2_bitpar_packed")) if kind == "single" else
+         ("K1_lv_lanes", "K2_bitpar_packed", "K6_rowwise_front"))
+        if kind == "single" else
         (sharded.ShardedPairedAligner, (r0, q0 + 33, r1, q1 + 33),
-         ("K1_lv_lanes", "K2_bitpar_packed", "K2_bitpar_rescue")))
+         ("K1_lv_lanes", "K2_bitpar_packed", "K2_bitpar_rescue",
+          "K6_rowwise_front")))
     kernels.reset_launches()
     got = make(index, sharded.make_mesh(2, 2, device=card)).align_batch(
         *args)

@@ -138,6 +138,54 @@ def test_gather_windows(big, width):
     same(wt, wj)
 
 
+# ---------------------------------------------------------- rowwise front
+
+@pytest.mark.parametrize("big", [False, True])
+def test_rowwise_front_cpu_route_and_slot_windows(big):
+    """On CPU tensors rowwise_front runs its plain version and launches no
+    K6; its window words are the JAX gather's; the windows the LV tiers
+    take from the slots they pick alone (slot_windows) are those rows of
+    the full gather_windows codes, also for starts below zero and past
+    the table."""
+    from snap_rnaseq_tpu_torch.models.single import _COMP_LUT
+    from snap_rnaseq_tpu_torch.ops import kernels
+    from snap_rnaseq_tpu_torch.ops import rowwise_front as rf
+    rng = np.random.default_rng(21 + big)
+    codes = rng.integers(0, 6, 9000).astype(np.uint8)
+    p4 = jgg.pack_genome_4bit(codes)
+    R, W, P, M = 12, 16, 100, 17
+    loc = rng.integers(0, 9100, (R, W)).astype(np.int64)
+    loc[0, :4] = [0, 3, 16, 17]                  # starts below zero
+    if big:                                       # past 2^31, and wrapping
+        loc[1] = rng.integers(1 << 31, 1 << 32, W)
+    loc32 = (loc & 0xFFFFFFFF).astype(np.uint32).view(np.int32)
+    live = rng.random((R, W)) < 0.8
+    dir_ = rng.integers(0, 2, (R, W)).astype(np.int32)
+    reads = rng.integers(0, 5, (R, P)).astype(np.uint8)
+    qlp = -rng.random((R, 2, P)).astype(np.float32)
+    args = (t(p4), t(loc32), t(dir_), t(live), t(reads),
+            torch.from_numpy(_COMP_LUT), t(qlp))
+    before = dict(kernels.LAUNCHES)
+    got = rf.rowwise_front(*args, M=M, big=big)
+    assert kernels.LAUNCHES == before
+    want = rf.rowwise_front_plain(*args, M=M, big=big)
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+    WIN = P + 2 * M
+    start = np.where(live, loc, 0).reshape(R * W) - M
+    start = (start & 0xFFFFFFFF).astype(np.uint32).view(np.int32)
+    cj, wj = jgg.gather_windows(jnp.asarray(p4), jnp.asarray(start),
+                                width=WIN, big=big, return_packed=True)
+    same(got[0], wj)
+    idx = rng.choice(R * W, 40, replace=False)
+    same(rf.slot_windows(got[0], torch.from_numpy(idx), WIN),
+         np.asarray(cj)[idx])
+    full = tgg.gather_windows(t(p4), t(start), width=WIN, big=big)
+    assert torch.equal(
+        rf.slot_windows(got[0], torch.from_numpy(idx), WIN),
+        full[torch.from_numpy(idx)])
+
+
 # ---------------------------------------------------------------- rowscan
 
 @pytest.mark.parametrize("which", ["add", "min", "max", "first"])
