@@ -2,10 +2,10 @@
 for each seed, the timed path at the cell's own size (a short window of
 whole batches through the configuration's entry), the harness's sample
 of its results and the compared numbers against the plain reference;
-then, for each control seed, the control's numbers: the plain reference
-computing its probabilities in bfloat16 (the configurations state
-float32), put in the program's place, against the same reference in
-float32.
+then, for each control seed, the control's numbers: the configuration's
+plain reference in the precision below the one the configuration states
+(the DNA reference: probabilities in bfloat16 for float32), put in the
+program's place, against the same reference as stated.
 
     python3 -m benchmark.limits --workload hglike-64m.pe100-bulk
         --seeds 1 2 ... --control-seeds 101 102 103 [--batches 8]
@@ -20,13 +20,12 @@ import sys
 
 import torch
 
-from .gen.genome import make_genome
+from . import lookup
 from .gen.reads import make_pool
 from .program import System
 from .reference import compare
-from .reference.aligner import Reference
-from .run import (benchmark_file, cell_spec, log, ref_params, sample_rows,
-                  set_cache_dirs, slice_map, take_sample)
+from .run import (benchmark_file, cell_spec, inputs, log, sample_rows,
+                  set_cache_dirs, take_sample)
 
 
 def main(argv=None) -> int:
@@ -41,14 +40,15 @@ def main(argv=None) -> int:
     spec = cell_spec(benchmark_file(), a.workload)
     config, traffic, cell = spec["config"], spec["traffic"], spec["cell"]
     paired = traffic["mode"] == "paired"
-    genome = make_genome(config["genome"])
-    system = System(genome, config, traffic, dev)
+    lookup.cell(config, traffic)
+    genome, extras = inputs(config)
+    system = System(genome, extras, config, traffic, dev)
     ends = 2 if paired else 1
     taken = []
     for kind, seeds in (("program", a.seeds), ("control", a.control_seeds)):
         for seed in seeds:
             pool = make_pool(genome, traffic, int(config["reads_per_batch"]),
-                             seed)
+                             seed, extras)
             n_rows = pool[0].n_reads // ends
             outs = []
             for i in range(a.batches):
@@ -59,17 +59,14 @@ def main(argv=None) -> int:
             picks = sample_rows(outs, n_rows, int(cell["check_reads"]) //
                                 ends, seed)
             taken.append((kind, seed, len(picks),
-                           *take_sample(pool, outs, picks, paired)))
+                           *take_sample(pool, outs, picks, system.keys)))
     # the references run once the program's state is freed
     system.free()
     del system
     torch.cuda.empty_cache()
-    slice_of = slice_map(genome, config, traffic, dev)
-    prm = ref_params(config, traffic)
-    ref = Reference(genome.codes, genome.piece_offsets, prm, dev,
-                    slice_of=slice_of)
-    ctl = Reference(genome.codes, genome.piece_offsets, prm, dev,
-                    prob_dtype="bfloat16", slice_of=slice_of)
+    reference = lookup.reference(config)
+    ref = reference.make(genome, extras, config, traffic, dev)
+    ctl = reference.make(genome, extras, config, traffic, dev, control=True)
     for kind, seed, n, got, reads, quals in taken:
         want = ref.align(reads, quals)
         if kind == "control":

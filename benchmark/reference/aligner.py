@@ -807,3 +807,39 @@ def _stack(rows: list, suffix: str) -> dict:
     keys = ("result", "loc", "dir", "score", "mapq")
     return {k + suffix: np.asarray([r[k] for r in rows], np.int64)
             for k in keys}
+
+
+def ref_params(config: dict, traffic: dict) -> Params:
+    a = traffic["aligner"]
+    paired = traffic["mode"] == "paired"
+    extra = dict(min_spacing=a["min_spacing"], max_spacing=a["max_spacing"],
+                 rescue_mates=a["rescue_mates"]) if paired else {}
+    return Params(seed_len=int(config["index"]["seed_len"]),
+                  max_k=a["max_dist"], num_seeds=a["num_seeds"],
+                  max_hits=a["max_hits"], extra=a["extra_search_depth"],
+                  cand_per_read=int(config["cand_per_read"]),
+                  max_seed_slots=a["max_seed_slots"], paired=paired, **extra)
+
+
+def slice_map(genome, config: dict, traffic: dict, dev):
+    """canonical seed key -> index slice, where the entry is the mesh over
+    the index's slices (None otherwise), worked out from the genome by
+    the reference (reference/slices.py)."""
+    if config["entry"][traffic["mode"]] != "sharded_paired":
+        return None
+    from .slices import key_slicer
+    return key_slicer(torch.from_numpy(genome.codes).to(dev),
+                      int(config["index"]["seed_len"]),
+                      float(config["index"]["load_factor"]),
+                      config["index"].get("slices"))
+
+
+def make(genome, extras: dict, config: dict, traffic: dict, device,
+         control: bool = False) -> Reference:
+    """Reference "aligner": the reference for a DNA configuration and
+    mix; `control` computes its probabilities in bfloat16, the precision
+    below the configurations' float32."""
+    return Reference(genome.codes, genome.piece_offsets,
+                     ref_params(config, traffic), device,
+                     prob_dtype="bfloat16" if control else "float32",
+                     slice_of=slice_map(genome, config, traffic, device))

@@ -6,12 +6,15 @@
 The cell's configuration (benchmark/configs/<config>.json), traffic mix
 (benchmark/traffic/<traffic>.json), limits (benchmark/cells/<cell>.json)
 and per-layer metric readers (benchmark/metrics/<metric>.py) are found by
-the names BENCHMARK.json gives.
+the names BENCHMARK.json gives; the configuration's entry, genome kind,
+extra inputs and reference, and the mix's read source, by the names
+those files give (benchmark/lookup.py), before any work.
 
-Set-up (setup_s, from process start): the configuration's genome from its
-own seed, its index built on the card, the aligner on the index's device
-copy, a pool of distinct read batches from --seed in pinned host memory,
-one warm-up batch at the cell's shapes, gc.collect(); gc.freeze().
+Set-up (setup_s, from process start): the configuration's genome and
+extra inputs from their own seeds, its index built on the card, the
+entry's aligner on the index's device copy, a pool of distinct read
+batches from --seed in pinned host memory, one warm-up batch at the
+cell's shapes, gc.collect(); gc.freeze().
 
 Window: one client, closed loop.  Each step copies the next pool batch to
 the card, calls the configuration's entry and copies the batch's result
@@ -46,6 +49,8 @@ import importlib.util  # noqa: E402
 import json  # noqa: E402
 import os  # noqa: E402
 import sys  # noqa: E402
+
+from . import lookup  # noqa: E402
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 ROOT = os.path.dirname(HERE)
@@ -109,33 +114,6 @@ def loaded_forbidden() -> list:
                    if m.split(".")[0] in FORBIDDEN})
 
 
-def ref_params(config: dict, traffic: dict):
-    from .reference.aligner import Params
-    a = traffic["aligner"]
-    paired = traffic["mode"] == "paired"
-    extra = dict(min_spacing=a["min_spacing"], max_spacing=a["max_spacing"],
-                 rescue_mates=a["rescue_mates"]) if paired else {}
-    return Params(seed_len=int(config["index"]["seed_len"]),
-                  max_k=a["max_dist"], num_seeds=a["num_seeds"],
-                  max_hits=a["max_hits"], extra=a["extra_search_depth"],
-                  cand_per_read=int(config["cand_per_read"]),
-                  max_seed_slots=a["max_seed_slots"], paired=paired, **extra)
-
-
-def slice_map(genome, config: dict, traffic: dict, dev):
-    """canonical seed key -> index slice, where the entry is the mesh over
-    the index's slices (None otherwise), worked out from the genome by
-    the reference (reference/slices.py)."""
-    import torch
-    if config["entry"][traffic["mode"]] != "sharded_paired":
-        return None
-    from .reference.slices import key_slicer
-    return key_slicer(torch.from_numpy(genome.codes).to(dev),
-                      int(config["index"]["seed_len"]),
-                      float(config["index"]["load_factor"]),
-                      config["index"].get("slices"))
-
-
 def sample_rows(steps: list, n_rows: int, n_sample: int, seed: int):
     """(step, row) pairs drawn from the seed over the completed steps."""
     import numpy as np
@@ -153,18 +131,18 @@ def quarters(ends_at: list) -> list:
             if q.size]
 
 
-def take_sample(pool, outs, picks, paired: bool):
-    """The picked rows' results (per field) and their reads and qualities
-    (per end)."""
+def take_sample(pool, outs, picks, keys: tuple):
+    """The picked rows' results (per field; rows named by `keys`) and
+    their reads and qualities (per end)."""
     import numpy as np
 
     from .program import rows_to_dict
-    ends = 2 if paired else 1
+    ends = len(pool[0].reads)
     got, reads, quals = {}, [[] for _ in range(ends)], [[] for _ in
                                                         range(ends)]
     for s_i, r in picks:
         p_i, rows = outs[s_i]
-        for k, v in rows_to_dict(rows[:, r:r + 1], paired).items():
+        for k, v in rows_to_dict(rows[:, r:r + 1], keys).items():
             got.setdefault(k, []).append(int(v[0]))
         for e in range(ends):
             reads[e].append(pool[p_i].reads[e][r])
@@ -173,28 +151,47 @@ def take_sample(pool, outs, picks, paired: bool):
             [np.stack(x) for x in reads], [np.stack(x) for x in quals])
 
 
-def setup(spec: dict, seed: int, dev, hook=None) -> dict:
-    """Everything before the window: genome, index, aligner, the read pool
-    in pinned memory, one warm-up batch; seconds of each part."""
-    import torch
-
+def inputs(config: dict, parts: dict | None = None) -> tuple:
+    """(genome, extras by kind): the configuration's inputs, from their
+    own seeds; the seconds of each into `parts`."""
     from .gen.genome import make_genome
-    from .gen.reads import make_pool
-    from .program import System, sync
-    config, traffic = spec["config"], spec["traffic"]
-    parts = {}
+    parts = {} if parts is None else parts
     t = time.perf_counter()
     genome = make_genome(config["genome"])
     parts["genome_s"] = time.perf_counter() - t
     log(f"genome: {genome.size:,} codes in {parts['genome_s']:.1f} s")
-    system = System(genome, config, traffic, dev)
+    extras = {}
+    for x, mod in lookup.extras(config):
+        if x["kind"] in extras:
+            raise ValueError(f"extra input {x['kind']!r} listed twice")
+        t = time.perf_counter()
+        extras[x["kind"]] = mod.make(genome, x)
+        parts[x["kind"] + "_s"] = time.perf_counter() - t
+        log(f"{x['kind']} in {parts[x['kind'] + '_s']:.1f} s")
+    return genome, extras
+
+
+def setup(spec: dict, seed: int, dev, hook=None) -> dict:
+    """Everything before the window: the cell's parts found by name,
+    genome and extra inputs, index, aligner, the read pool in pinned
+    memory, one warm-up batch; seconds of each part."""
+    import torch
+
+    from .gen.reads import make_pool
+    from .program import System, sync
+    config, traffic = spec["config"], spec["traffic"]
+    lookup.cell(config, traffic)
+    parts = {}
+    genome, extras = inputs(config, parts)
+    system = System(genome, extras, config, traffic, dev)
     parts.update(system.parts)
     log(f"index built in {parts['index_build_s']:.2f} s "
         f"({system.n_slices} slices), aligner in {parts['aligner_s']:.2f} s")
     if hook:
         hook(system)
     t = time.perf_counter()
-    pool = make_pool(genome, traffic, int(config["reads_per_batch"]), seed)
+    pool = make_pool(genome, traffic, int(config["reads_per_batch"]), seed,
+                     extras)
     host = [[torch.from_numpy(x) for pair in zip(b.reads, b.quals)
              for x in pair] for b in pool]
     if dev.type == "cuda":
@@ -204,8 +201,8 @@ def setup(spec: dict, seed: int, dev, hook=None) -> dict:
     system.step([x.to(dev) for x in host[0]])
     sync(dev)
     parts["warmup_s"] = time.perf_counter() - t
-    return dict(genome=genome, system=system, pool=pool, host=host,
-                parts=parts)
+    return dict(genome=genome, extras=extras, system=system, pool=pool,
+                host=host, parts=parts)
 
 
 def window(s: dict, dev, seconds: float, traced: bool) -> dict:
@@ -261,14 +258,13 @@ def check(s: dict, w: dict, spec: dict, seed: int, dev) -> tuple:
     import torch
 
     from .reference import compare
-    from .reference.aligner import Reference
     config, traffic, cell = spec["config"], spec["traffic"], spec["cell"]
     paired = traffic["mode"] == "paired"
     ends = 2 if paired else 1
     pool, outs = s["pool"], w["outs"]
     picks = sample_rows(outs, pool[0].n_reads // ends,
                         int(cell["check_reads"]) // ends, seed)
-    got, reads, quals = take_sample(pool, outs, picks, paired)
+    got, reads, quals = take_sample(pool, outs, picks, s["system"].keys)
     n_slices = s["system"].n_slices
     s["system"].free()
     s["system"] = s["host"] = None
@@ -277,13 +273,12 @@ def check(s: dict, w: dict, spec: dict, seed: int, dev) -> tuple:
     if dev.type == "cuda":
         torch.cuda.empty_cache()
     t = time.perf_counter()
-    genome = s["genome"]
-    slice_of = slice_map(genome, config, traffic, dev)
+    ref = lookup.reference(config).make(s["genome"], s["extras"], config,
+                                        traffic, dev)
+    slice_of = getattr(ref, "slice_of", None)
     if slice_of is not None and slice_of.n_slices != n_slices:
         log(f"reference: {slice_of.n_slices} index slices, the program "
             f"built {n_slices}")
-    ref = Reference(genome.codes, genome.piece_offsets,
-                    ref_params(config, traffic), dev, slice_of=slice_of)
     want = ref.align(reads, quals)
     log(f"reference: {len(picks)} sampled {'pairs' if paired else 'reads'}"
         f" in {time.perf_counter() - t:.1f} s; reads that differ, by "
@@ -331,8 +326,9 @@ def run(name: str, seed: int, seconds: float, traced: bool, *,
     # placement against the generator's origins, every read of the window
     placed = 0
     ends = ("0", "1") if paired else ("",)
+    keys = s["system"].keys
     for p_i, rows in w["outs"]:
-        d = rows_to_dict(rows, paired)
+        d = rows_to_dict(rows, keys)
         for e, true in zip(ends, s["pool"][p_i].true_loc):
             placed += int((np.abs(d["loc" + e] - true) <= 2 * L).sum())
     e2e = dict(reads_per_s=n_done / w["window_s"],

@@ -19,11 +19,10 @@ import time
 
 import torch
 
-from .gen.genome import make_genome
+from . import lookup, trace
 from .gen.reads import make_pool
 from .program import System, sync
-from .run import HERE, load_json, log, set_cache_dirs
-from . import trace
+from .run import HERE, inputs, load_json, log, set_cache_dirs
 
 
 def measure(system, host, dev, steps: int) -> dict:
@@ -62,13 +61,17 @@ def main(argv=None) -> int:
         return 3
     dev = torch.device("cuda")
     config = load_json(os.path.join(HERE, "configs", a.config + ".json"))
-    genome = make_genome(config["genome"])
+    mixes = {name: load_json(os.path.join(HERE, "traffic", name + ".json"))
+             for name in a.traffic}
+    for traffic in mixes.values():
+        lookup.cell(config, traffic)
+    genome, extras = inputs(config)
     total = torch.cuda.get_device_properties(dev).total_memory / 2 ** 30
-    for name in a.traffic:
-        traffic = load_json(os.path.join(HERE, "traffic", name + ".json"))
-        system = System(genome, config, traffic, dev)
+    for name, traffic in mixes.items():
+        system = System(genome, extras, config, traffic, dev)
         for size in a.sizes:
-            pool = make_pool(genome, dict(traffic, pool_batches=2), size, 1)
+            pool = make_pool(genome, dict(traffic, pool_batches=2), size, 1,
+                             extras)
             host = [[torch.from_numpy(x).pin_memory()
                      for pair in zip(b.reads, b.quals) for x in pair]
                     for b in pool]

@@ -17,8 +17,9 @@ import pytest
 import torch
 
 from benchmark import run
-from benchmark.program import PAIR_KEYS, SINGLE_KEYS
-from benchmark.reference.aligner import Reference
+from benchmark.entries.paired import PAIR_KEYS
+from benchmark.entries.single import SINGLE_KEYS
+from benchmark.reference.aligner import Reference, ref_params
 
 BENCH = run.benchmark_file()
 SEED = 2 ** 31 + 11
@@ -79,7 +80,7 @@ def duplicated(n_bases: int, seed: int = 0, **_fracs) -> np.ndarray:
 @pytest.mark.parametrize("name", CELLS)
 def test_control_in_bfloat16_is_not_correct(name, monkeypatch):
     """The control on a genome whose reads all have a near placement."""
-    import benchmark.gen.genome as gg
+    import benchmark.gen.genomes.hg_like as gg
     monkeypatch.setattr(gg, "hg_like", duplicated)
     spec = spec_for(name)
     paired = spec["traffic"]["mode"] == "paired"
@@ -88,7 +89,7 @@ def test_control_in_bfloat16_is_not_correct(name, monkeypatch):
         from benchmark.gen.genome import make_genome
         genome = make_genome(spec["config"]["genome"], workers=1)
         ref = Reference(genome.codes, genome.piece_offsets,
-                        run.ref_params(spec["config"], spec["traffic"]),
+                        ref_params(spec["config"], spec["traffic"]),
                         "cpu", prob_dtype="bfloat16")
 
         def control(batch):
@@ -105,12 +106,13 @@ def test_control_in_bfloat16_is_not_correct(name, monkeypatch):
 @pytest.mark.parametrize("name", CELLS)
 def test_altered_answer_is_not_correct(name):
     spec = spec_for(name)
+    paired = spec["traffic"]["mode"] == "paired"
 
     def wrap(system, step):
         def altered(batch):
             rows = step(batch).clone()
-            keys = PAIR_KEYS if system.paired else SINGLE_KEYS
-            i = keys.index("loc0" if system.paired else "loc")
+            keys = PAIR_KEYS if paired else SINGLE_KEYS
+            i = keys.index("loc0" if paired else "loc")
             rows[i] += 1
             return rows
         return altered
@@ -120,6 +122,7 @@ def test_altered_answer_is_not_correct(name):
 @pytest.mark.parametrize("name", CELLS)
 def test_half_the_batch_left_out_is_not_correct(name):
     spec = spec_for(name)
+    paired = spec["traffic"]["mode"] == "paired"
 
     def wrap(system, step):
         def half(batch):
@@ -127,7 +130,7 @@ def test_half_the_batch_left_out_is_not_correct(name):
             rows = step([t[:n] for t in batch])
             rest = torch.zeros((rows.shape[0], batch[0].shape[0] - n),
                                dtype=rows.dtype)
-            keys = PAIR_KEYS if system.paired else SINGLE_KEYS
+            keys = PAIR_KEYS if paired else SINGLE_KEYS
             for i, k in enumerate(keys):
                 if k.startswith(("loc", "score", "pair_score")):
                     rest[i] = -1

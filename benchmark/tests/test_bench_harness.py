@@ -15,7 +15,8 @@ import pytest
 import torch
 
 from benchmark import roofline, run, trace
-from benchmark.gen.genome import hg_like, make_genome
+from benchmark.gen.genome import make_genome
+from benchmark.gen.genomes.hg_like import hg_like
 from benchmark.gen.reads import make_pool
 
 ROOT = run.ROOT
