@@ -23,7 +23,6 @@ import torch
 from . import lookup
 from .gen.reads import make_pool
 from .program import System
-from .reference import compare
 from .run import (benchmark_file, cell_spec, inputs, log, sample_rows,
                   set_cache_dirs, take_sample)
 
@@ -64,17 +63,17 @@ def main(argv=None) -> int:
     system.free()
     del system
     torch.cuda.empty_cache()
-    reference = lookup.reference(config)
+    reference, cmp = lookup.reference(config), lookup.comparison(config)
     ref = reference.make(genome, extras, config, traffic, dev)
     ctl = reference.make(genome, extras, config, traffic, dev, control=True)
     for kind, seed, n, got, reads, quals in taken:
         want = ref.align(reads, quals)
         if kind == "control":
             got = ctl.align(reads, quals)
-        vals = compare.numbers(got, want, paired)
+        vals = cmp.numbers(got, want, paired)
         print(json.dumps(dict(workload=a.workload, kind=kind, seed=seed,
                               n=n, **vals,
-                              fields=compare.fields(got, want, paired))),
+                              fields=cmp.fields(got, want, paired))),
               flush=True)
         log(f"{kind} seed {seed}: {vals}")
     return 0

@@ -8,6 +8,7 @@ genome kind   gen/genomes/   config["genome"]["kind"]         make
 extra input   gen/extras/    config["extras"][i]["kind"]      make
 read source   gen/sources/   traffic["source"] ("genome")     make_batch
 reference     reference/     config["reference"] ("aligner")  make
+comparison    reference/     the reference's file ("compare") numbers
 
 A name is the stem of its file; one with no file fails with the path it
 looked for.
@@ -56,6 +57,17 @@ def source(traffic: dict):
 
 def reference(config: dict):
     return find("reference", config.get("reference", "aligner"), "make")
+
+
+def comparison(config: dict):
+    """The comparison that decides `correct`: numbers(got, want, paired)
+    by name, and fields(got, want, paired), the reads that differ in
+    each output, for the log; the reference's own where its file defines
+    them, else compare.py's."""
+    ref = reference(config)
+    if callable(getattr(ref, "numbers", None)):
+        return ref
+    return find("reference", "compare", "numbers")
 
 
 def cell(config: dict, traffic: dict) -> None:

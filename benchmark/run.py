@@ -30,7 +30,8 @@ per-layer metrics are printed instead.
 Then `correct`: once the window has closed and the program's state is
 freed, a sample of the window's reads drawn from the seed is aligned by
 the plain reference (benchmark/reference/) on the same card, and each
-number of reference/compare.py is held to its limit.
+number of the reference's comparison (reference/compare.py unless its
+file defines its own) is held to its limit.
 
 The last line of stdout is one JSON object; progress and the compared
 numbers (last) go to stderr.  Without a card (or with fewer cards than
@@ -259,6 +260,7 @@ def check(s: dict, w: dict, spec: dict, seed: int, dev) -> tuple:
 
     from .reference import compare
     config, traffic, cell = spec["config"], spec["traffic"], spec["cell"]
+    cmp = lookup.comparison(config)
     paired = traffic["mode"] == "paired"
     ends = 2 if paired else 1
     pool, outs = s["pool"], w["outs"]
@@ -282,8 +284,8 @@ def check(s: dict, w: dict, spec: dict, seed: int, dev) -> tuple:
     want = ref.align(reads, quals)
     log(f"reference: {len(picks)} sampled {'pairs' if paired else 'reads'}"
         f" in {time.perf_counter() - t:.1f} s; reads that differ, by "
-        "output: " + json.dumps(compare.fields(got, want, paired)))
-    correct, rows = compare.judge(compare.numbers(got, want, paired),
+        "output: " + json.dumps(cmp.fields(got, want, paired)))
+    correct, rows = compare.judge(cmp.numbers(got, want, paired),
                                   cell["limits"])
     return correct and w["failed"] == 0 and len(picks) > 0, rows
 

@@ -1,9 +1,9 @@
-"""The harness's parts found by name (benchmark/lookup.py): the three
-cells' genome, read pools, step results and reference answers byte for
-byte as the harness made them before the lookups; a configuration whose
-entry, extra input, read source and reference are new files, run whole
-with no harness file changed; an unknown name failing before any work,
-with the path it looked for.
+"""The harness's parts found by name (benchmark/lookup.py): each cell's
+genome, extra inputs, read pools, step results and reference answers
+byte for byte as its own file of digests pins them; a configuration
+whose entry, extra input, read source and reference are new files, run
+whole and held to the harness's tests with no harness file changed; an
+unknown name failing before any work, with the path it looked for.
 
     python -m pytest benchmark/tests -q
 """
@@ -28,44 +28,15 @@ from benchmark import lookup, run
 from benchmark.gen.reads import make_pool
 
 BENCH = run.benchmark_file()
-SEEDS = (2 ** 31 + 5, 977)
+SEEDS = (2 ** 31 + 5, 977)     # every cell's pinned seeds
 
-# sha256 of (genome codes and piece offsets; every pool batch's reads,
-# qualities and true_loc; the rows of one System.step on pool batch 0;
-# the reference's answers for the same reads), at tiny_spec's sizes on
-# the CPU, as the harness computed them before its parts were looked up
-DIGESTS = {
-    ("hglike-64m.pe100-bulk", SEEDS[0]): (
-        "75ebc6ff76e7c2176577e1318783d9c56cb9a1a975c1d96077ad60250025e36b",
-        "416e8d6a7a3a33ba24bc006d8c362a12a0bbf1b9fe27f00cbe33d74369ce621f",
-        "451c59969d04e3b42c4eec134dfbd0bd89d42d73fd310e7b990b85d41713a7d6",
-        "9acf1f7576cfcc5b20582e5c8e5c768697a4cd3ffcdf0af993d22f46f109b7d3"),
-    ("hglike-64m.pe100-bulk", SEEDS[1]): (
-        "75ebc6ff76e7c2176577e1318783d9c56cb9a1a975c1d96077ad60250025e36b",
-        "b7c8340cc6a538f538e18f9d84322a7e4166d190669bd0936686cbcd92b1b11e",
-        "0923a39c0389ba1a47bf4756d648bf006a56e9af2a8063c14d66ecbaabbe69e4",
-        "72868af4df84c77514e5ce501b37aae0a9ba602000f9b135df2a5d39bf7a1b22"),
-    ("hglike-3g.pe100-bulk", SEEDS[0]): (
-        "07b2854c4ba84d7f86112764868e738f6b47ab73aa9dbe99eb252c46506a4c6b",
-        "05c54452e91f190bec880e1a9c07d4e151f8755857699e6c240493ae5789df87",
-        "2cff51a50fc43b70d369c23eeeb505bbce5aa09034b5291b7d87eaa5aac664b2",
-        "136bd03049e5d1f6b0ba939420ecb871551fc32f6e56fdb21574a76e058a1173"),
-    ("hglike-3g.pe100-bulk", SEEDS[1]): (
-        "07b2854c4ba84d7f86112764868e738f6b47ab73aa9dbe99eb252c46506a4c6b",
-        "d4d274563581f3c5c52fae829a72952c0e3a9229b1f09a8da9d33e188361ab0c",
-        "264ee405cd40cb095ae1f018880a25c89e4259ad5b0705d5ee823e38c4e47224",
-        "03e7ea3c6b65ce8f6984c6988c01f71e59bef70cf0dea1af436f9fde8e1b3b90"),
-    ("hglike-64m.se100-bulk", SEEDS[0]): (
-        "75ebc6ff76e7c2176577e1318783d9c56cb9a1a975c1d96077ad60250025e36b",
-        "43fc2fae37e30c02511fc8b0cfec97664ee676d1b7f474c635eb76f9ba7dd14d",
-        "7a9875c77e8002c4cdd29030cfd1b0fa293e5a8a1fdfb64f81ee1de650281d44",
-        "f6aea34d9e7426c2d9df429550b65435e16b2cc8c6a032fc61b21afb98297431"),
-    ("hglike-64m.se100-bulk", SEEDS[1]): (
-        "75ebc6ff76e7c2176577e1318783d9c56cb9a1a975c1d96077ad60250025e36b",
-        "c8f10d043ab3de452e927a3ac043068d95f0c430ca3c8277a4bccc9cbee2f60f",
-        "0c88a185aa20449d2bab8bf5b8ca9f106971daee8943195404e83f7e1f99ca71",
-        "056c44b7e6817e845d6a37ea63511de0055e6e5a87f3e8ca20de9a4785fe1fcd"),
-}
+# each cell's pins, benchmark/tests/digests/<cell>.json: for each of its
+# seeds, sha256 of the genome codes and piece offsets; every pool batch's
+# reads, qualities and true_loc; the rows of one System.step on pool
+# batch 0; the reference's answers for the same reads; the extra inputs'
+# arrays (extras_arrays), at tiny_spec's sizes on the CPU
+DIGEST_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                          "digests")
 
 
 @pytest.fixture(autouse=True)
@@ -102,27 +73,53 @@ def digest(arrays) -> str:
 
 # ------------------------------------------------------------ the cells
 
+def pinned(name: str) -> dict:
+    """The cell's digests by seed, from its file, which pins SEEDS."""
+    path = os.path.join(DIGEST_DIR, name + ".json")
+    if not os.path.isfile(path):
+        pytest.fail(f"no digest file {path} for the cell {name!r}")
+    pins = {int(s): d for s, d in run.load_json(path)["digests"].items()}
+    assert sorted(pins) == sorted(SEEDS), path
+    return pins
+
+
+def extras_arrays(x):
+    """The arrays of the extra inputs by kind (kinds, and a dict's keys,
+    in sorted order; text as its UTF-8 bytes)."""
+    if isinstance(x, dict):
+        for k in sorted(x):
+            yield from extras_arrays(x[k])
+    elif isinstance(x, (list, tuple)):
+        for v in x:
+            yield from extras_arrays(v)
+    elif isinstance(x, str):
+        yield np.frombuffer(x.encode(), np.uint8)
+    else:
+        yield np.asarray(x)
+
+
 @pytest.mark.parametrize("name", [w["name"] for w in BENCH["workloads"]])
 def test_cells_inputs_and_answers_did_not_move(name):
+    pins = pinned(name)
     spec = tiny_spec(name)
     config, traffic = spec["config"], spec["traffic"]
     genome, extras = run.inputs(config)
-    assert extras == {}
     system = program.System(genome, extras, config, traffic, "cpu")
     ref = lookup.reference(config).make(genome, extras, config, traffic,
                                         "cpu")
-    for seed in SEEDS:
+    for seed, pin in pins.items():
         pool = make_pool(genome, traffic, 256, seed, extras)
         b = pool[0]
         rows = system.step([torch.from_numpy(x) for pair in
                             zip(b.reads, b.quals) for x in pair]).numpy()
         want = ref.align(b.reads, b.quals)
-        got = (digest([genome.codes, genome.piece_offsets]),
-               digest([x for p in pool for x in p.reads + p.quals
-                       + p.true_loc]),
-               digest([rows]),
-               digest([want[k] for k in sorted(want)]))
-        assert got == DIGESTS[(name, seed)], seed
+        got = dict(genome=digest([genome.codes, genome.piece_offsets]),
+                   pool=digest([x for p in pool for x in p.reads + p.quals
+                                + p.true_loc]),
+                   rows=digest([rows]),
+                   reference=digest([want[k] for k in sorted(want)]),
+                   extras=digest(extras_arrays(extras)))
+        assert got == pin, seed
 
 
 # ------------------------------------------------------------ new files
@@ -198,6 +195,23 @@ def make(genome, extras, config, traffic, device, control=False):
 ''',
 }
 
+# the toy cell's pins, as its own digest file holds them
+PINS = ("genome", "pool", "rows", "reference", "extras")
+TOY_DIGESTS = {
+    "2147483653": dict(zip(PINS, (
+        "a0e66c124f1b0ace035d889ec36e5f44a27637472b4f834f966002199a392390",
+        "5f2ccbff7facab8b20ccb2725b4b2e9eb0ae3dc207671cc75f01cce8c76872e3",
+        "b5c4366b4e163d78fc70dbc6e9d5b473b274812d55bafeae6de24db318b8109d",
+        "6601d07a02bc0b7622e438dac02f5981610c16986840a88d13347ac33d058779",
+        "fbdc0018171fc9120b9a3b651db8ad8a55c963695a43c0928ae9510cecd2120a"))),
+    "977": dict(zip(PINS, (
+        "a0e66c124f1b0ace035d889ec36e5f44a27637472b4f834f966002199a392390",
+        "a6e9b385cf46000a6cf4346a3e22ec17ad57a920a6e1c689236e98229da0b6c9",
+        "4738e6860c877d76a1582519be44c107fa785778b4fdf53c7d67c47e2956254b",
+        "4c83efafa3aeafccfe399f0b9eadd41774f898a9c66626296e4655f30e7f44c7",
+        "fbdc0018171fc9120b9a3b651db8ad8a55c963695a43c0928ae9510cecd2120a"))),
+}
+
 RUN_IN_COPY = """
 import json, os, sys, torch
 torch.set_num_threads(2)
@@ -236,6 +250,8 @@ def test_a_configuration_is_added_as_files_only(tmp_path):
     added["traffic/toy-spliced.json"] = json.dumps(traffic)
     added["cells/toy.toy-spliced.json"] = json.dumps(
         {"check_reads": 256, "limits": {"mismatch_share": 0.0016}})
+    added["tests/digests/toy.toy-spliced.json"] = json.dumps(
+        {"digests": TOY_DIGESTS})
     for rel, text in added.items():
         assert not (copied / rel).exists(), rel
         (copied / rel).write_text(text)
@@ -246,6 +262,8 @@ def test_a_configuration_is_added_as_files_only(tmp_path):
     bench["workloads"].append(dict(name="toy.toy-spliced", config="toy",
                                    traffic="toy-spliced", chips=1,
                                    why="spliced pairs"))
+    next(m for m in bench["per_layer"] if m["name"] == "index.build_s")[
+        "workloads"].append("toy.toy-spliced")
     (tmp_path / "BENCHMARK.json").write_text(json.dumps(bench))
 
     env = dict(os.environ, PYTHONPATH=os.pathsep.join(
@@ -260,6 +278,16 @@ def test_a_configuration_is_added_as_files_only(tmp_path):
     assert line["failed"] == 0 and line["attempted"] >= 1
     assert "toy_exons in" in proc.stderr
     assert line["metrics"]["placed_share"]["value"] > 0.5
+
+    # the harness's tests and every cell's digests, the new one's too
+    proc = subprocess.run(
+        [sys.executable, "-m", "pytest", "-v", "-p", "no:cacheprovider",
+         "benchmark/tests/test_bench_harness.py",
+         "benchmark/tests/test_bench_lookups.py::"
+         "test_cells_inputs_and_answers_did_not_move"],
+        cwd=tmp_path, env=env, capture_output=True, text=True, timeout=600)
+    assert proc.returncode == 0, proc.stdout[-6000:]
+    assert "did_not_move[toy.toy-spliced] PASSED" in proc.stdout
 
     # no file of the harness differs from the repo's but the added ones
     repo = set(_files(run.HERE))
@@ -310,3 +338,17 @@ def test_an_unknown_name_fails_before_any_work(part, name, monkeypatch):
         run.run("hglike-64m.pe100-bulk", 1, 0.1, False, spec=spec,
                 bench=BENCH, device="cpu")
     assert path in str(e.value)
+
+
+@pytest.mark.parametrize("reference,names", [
+    ("aligner", ["mismatch_share"]),
+    ("rna", ["mismatch_share", "genome_mismatch_share"])])
+def test_a_reference_brings_its_comparison(reference, names):
+    """The numbers that decide `correct` are the reference's own where
+    its file defines them, compare.py's otherwise."""
+    cmp = lookup.comparison(dict(reference=reference))
+    keys = ["loc0", "loc1", "dir0", "dir1", "score0", "score1", "mapq0",
+            "mapq1", "pair_found", "pair_score"]
+    out = {p + k: np.arange(4) for k in keys for p in ("", "g_")}
+    assert list(cmp.numbers(out, out, True)) == names
+    assert set(cmp.numbers(out, out, True).values()) == {0.0}
