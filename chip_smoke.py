@@ -30,7 +30,9 @@ failure; nothing is caught.
    1e-5.  K2's rescue form is also run and timed at 1-32 chunks per row
    (the split scan), each count giving the same answer.  Reads past 128
    bases: K2 forward, in every flag form and at the mate rescue's window,
-   and K4 in each flag form, at P = 150, 250 and 512.
+   and K4 in each flag form, at P = 150, 250 and 512.  K7 (the cuckoo
+   seed phase) against the plain chain on tools/cuckoo_cases.py's layouts
+   (every output equal), at 48 positions and at 32 with the first 8 valid.
 3. Golden: tests/test_golden.py's and tests/test_golden_paired_rna.py's
    datasets through the port's `index` + `single`, `index` + `paired` and
    `index` + `transcriptome` + RNA `single` CLI on the card must reproduce
@@ -91,9 +93,10 @@ failure; nothing is caught.
    g. the probe-chain lookup: DNA single, DNA paired and RNA single on 4
       x 1024 of their reads under SNAP_TPU_LOOKUP=probe (paths
       single_probe, paired_probe, rna_single_probe) and under the cuckoo
-      lookup, the SAMs identical but for @PG; seed_phase alone under each
-      lookup (wall and device-busy ms per batch), the longest probe chain
-      and the stragglers per batch, peak memory.
+      lookup, the SAMs identical but for @PG, K7 launching under the
+      cuckoo lookup only; seed_phase alone under each lookup (wall and
+      device-busy ms per batch; K7's by CUDA events), the longest probe
+      chain and the stragglers per batch, peak memory.
    h. tools/distance_hist.py on 4a's SAM on the card (path
       distance_hist: K1 at e_max 31 without qualities) and on the CPU,
       the histograms identical.
@@ -197,8 +200,12 @@ failure; nothing is caught.
 7. Prints the kernels line: per kernel, `by_path` holds every path that
    launched it (launches, device and bound ms per launch weighted by
    launches, lost ms = launches x (device - bound), its shapes), and the
-   top-level fields are taken at the path where it loses the most; then
-   the card line, and last the result line.
+   top-level fields are taken at the path where it loses the most; K7's
+   entry instead holds its launches by path and, in `cells`, its runs at
+   the 64 Mb cells' batches on 4a's index (131,072 reads, 48 positions;
+   32 positions, first 8 valid: every output equal to the plain chain's,
+   device and bound ms, plain ms); then the card line, and last the
+   result line.
 """
 import contextlib
 import functools
@@ -477,6 +484,97 @@ def check_k6(dev, rng):
                 max_abs_err=logp_err("K6_rowwise_front", got[3][ok],
                                      want[3][ok]),
                 within_e_max=int(ok.sum()))
+
+
+def same_seeds(what, got, want):
+    """K7's outputs against the plain chain's: the same keys, each equal."""
+    if set(got) != set(want):
+        raise AssertionError(f"{what}: outputs {sorted(got)} against "
+                             f"{sorted(want)}")
+    for k, w in want.items():
+        assert_same(f"{what} {k}", got[k], w)
+
+
+def check_k7(dev, rng):
+    """K7 on 16,384 reads over a tools/cuckoo_cases.py layout (h1 and h2
+    buckets, the stash with repeated keys, absent keys, reads with N), at
+    48 positions and at 32 positions with the first 8 valid."""
+    from snap_rnaseq_tpu_torch.models.single import seed_phase_plain
+    from snap_rnaseq_tpu_torch.ops import lookup as lk
+    from snap_rnaseq_tpu_torch.ops import u32
+    from snap_rnaseq_tpu_torch.tools import cuckoo_cases as cc
+    import torch
+    B = 16_384
+    for S, N in ((48, 0), (32, 8)):
+        case = cc.seed_case(rng, B, READ_LEN, 20, S, past_end=True,
+                            wild=True)
+        tables = {k: u32.from_numpy(case[k], dev)
+                  for k in ("ck_buckets", "ck_buckets2", "ck_stash")}
+        args = (torch.from_numpy(case["reads"]).to(dev),
+                tuple(int(p) for p in case["positions"]), 20,
+                torch.from_numpy(case["overflow"]).to(dev),
+                case["genome_size"], tables, N)
+        pos_t = torch.from_numpy(case["positions"].astype(np.int32)).to(dev)
+        same_seeds("K7", lk.seed_lookup_cuda(args[0], pos_t, 20, tables,
+                                             args[3], args[4], N),
+                   seed_phase_plain(*args))
+    return dict(name="K7_seed_lookup (48 positions; 32, first 8 valid)",
+                rows=2 * B, max_abs_err=0.0, placed=case["placed"])
+
+
+def k7_cells(aligner, genome):
+    """K7 at the 64 Mb cells' batches on the aligner's index: 131,072
+    reads of 100 bases cut from `genome` (1% substitutions, half reverse
+    complemented), the single cell's 48 positions and the pairs cell's 32
+    with the first 8 valid.  Every output equal to the plain chain's; K7
+    timed on the device (CUDA events behind a spin kernel, 20 calls), the
+    plain chain once.  Bound by bytes: the reads once, one 128-byte
+    bucket row a valid seed looked up and a second where it was not
+    found (a seed found in its h2 row counts one), an overflow count a
+    half that reads one, and the outputs (26 bytes a column, sel_pos 4)."""
+    import torch
+    from snap_rnaseq_tpu_torch.models.single import seed_phase_plain
+    from snap_rnaseq_tpu_torch.ops import lookup as lk
+    from snap_rnaseq_tpu_torch.utils.seed_sequencer import (
+        seed_position_schedule)
+    B, L, seed_len = 131_072, READ_LEN, aligner.index.seed_len
+    rng = np.random.default_rng(20261019)
+    start = rng.integers(0, genome.size - L, B)
+    reads = genome[start[:, None] + np.arange(L)]
+    sub = rng.random((B, L)) < 0.01
+    reads[sub] = (reads[sub] + 1) % 4
+    rc = rng.random(B) < 0.5
+    reads[rc] = np.where(reads[rc, ::-1] < 4, 3 - reads[rc, ::-1],
+                         reads[rc, ::-1])
+    reads_t = torch.from_numpy(reads).cuda()
+    positions = seed_position_schedule(L, seed_len)[0]
+    st, gsize = aligner.state, aligner.genome_size
+    out = []
+    for S, N in ((48, 0), (32, 8)):
+        pos = tuple(int(p) for p in positions[:S])
+        k7 = functools.partial(lk.seed_lookup_cuda, reads_t,
+                               torch.tensor(pos, dtype=torch.int32).cuda(),
+                               seed_len, st, st["overflow"], gsize, N)
+        plain_ms, want = timed_once(functools.partial(
+            seed_phase_plain, reads_t, pos, seed_len, st["overflow"], gsize,
+            st, N))
+        same_seeds(f"K7 {B} x {S} -> {N or S}", k7(), want)
+        dev_ms = device_ms(k7, 20)
+        valid, found = want["valid"], want["found"]
+        n_valid = int(valid.sum())
+        n_bytes = (B * L + 128 * (n_valid + int((valid & ~found).sum()))
+                   + 4 * int((want["bases"] >= 0).sum())
+                   + B * (N or S) * 26 + 4 * B * N)
+        b_ms, b_by = bound(n_bytes, 0)
+        out.append(dict(shape=[B, S, N], device_ms=dev_ms, bound_ms=b_ms,
+                        bound_by=b_by, plain_ms=plain_ms,
+                        valid_share=n_valid / valid.numel(),
+                        found_share=int(found.sum()) / max(n_valid, 1),
+                        max_abs_err=0.0))
+        log(f"K7 at the cells' {[B, S, N]}: {dev_ms:.4f} ms on the device, "
+            f"bound {b_ms:.5f} ms ({b_by}), plain {plain_ms:.3f} ms; every "
+            "output equal")
+    return out
 
 
 K3_SCRIPT = ("distance", "e_final", "d_final", "net_indel", "acts",
@@ -1332,7 +1430,7 @@ def write_fasta(path, codes, name="ref"):
 
 
 SINGLE_PATH = ("K1_lv_lanes", "K2_bitpar_packed", "K3_lv_cigar",
-               "K6_rowwise_front")
+               "K6_rowwise_front", "K7_seed_lookup")
 PAIRED_PATH = SINGLE_PATH + ("K2_bitpar_rescue",)
 STRINGZ_PATH = ("K4_bitpar_rows",)
 
@@ -1460,8 +1558,8 @@ def single_real_phase(tmp, codes, idx, index_s, n_reads, batch,
                index_build_s=index_s, peak_device_bytes=peak,
                launches=launches, wait_profile=wait_line(stdout))
     if engine:
-        res["engine"] = single_engine_phase(
-            idx, np.stack([r for _, _, r in reads]), batch)
+        res["engine"], res["k7_cells"] = single_engine_phase(
+            idx, np.stack([r for _, _, r in reads]), batch, codes)
     if res["at_origin_share"] < 0.8:
         raise AssertionError(f"only {res['at_origin_share']:.3f} of reads "
                              "placed at their origin")
@@ -2087,10 +2185,13 @@ def probe_phase(tmp, idx, batch, n_batches=4, device="cuda"):
     paired_probe, rna_single_probe; calls recorded) and under the default
     cuckoo lookup: the SAMs must be identical (@PG aside, which names the
     output).  Then seed_phase alone under each lookup on 4a's reads (wall
-    and device ms per batch), the longest probe chain, peak memory."""
+    and device ms per batch: the probe chain's from torch.profiler, K7's
+    from CUDA events), the longest probe chain, peak memory."""
     import torch
     from snap_rnaseq_tpu_torch.cli import _load_index_cached
-    from snap_rnaseq_tpu_torch.models.single import SingleAligner, seed_phase
+    from snap_rnaseq_tpu_torch.models.single import (SingleAligner,
+                                                     schedule_on, seed_phase)
+    from snap_rnaseq_tpu_torch.ops import kernels as kx
     n = n_batches * batch
     fq = head_fastq(os.path.join(tmp, f"reads{READ_LEN}.fq"),
                     os.path.join(tmp, "g_single.fq"), n)
@@ -2110,10 +2211,18 @@ def probe_phase(tmp, idx, batch, n_batches=4, device="cuda"):
         sams, row = {}, {}
         for mode in ("cuckoo", "probe"):
             out = os.path.join(tmp, f"{name}_{mode}.sam")
+            # K7 is the cuckoo layout's seed phase: it launches under
+            # the cuckoo lookup only
+            need = tuple(k for k in path if k != "K7_seed_lookup")
+            if mode == "cuckoo":
+                need += ("K7_seed_lookup",)
             with seed_lookup(mode):
                 _, launches, c, wall_s, peak = counted_cli(
                     argv + ["-o", out, "-bs", str(batch), "--device",
-                            device], path, device)
+                            device], need, device)
+            if mode == "probe" and launches["K7_seed_lookup"]:
+                raise AssertionError(f"{name}: K7 launched under the "
+                                     "probe lookup")
             if mode == "probe":
                 calls[name] = c
                 row["launches"] = launches
@@ -2139,14 +2248,30 @@ def probe_phase(tmp, idx, batch, n_batches=4, device="cuda"):
             al = SingleAligner(index, device=device)
         positions, _ = al.schedule_for(READ_LEN)
         st = al.state
+        # the positions on the card once, as the engine holds them
+        pos_t = schedule_on(positions, device)
         step = lambda b: seed_phase(b, tuple(positions), index.seed_len,
-                                    st["overflow"], al.genome_size, st)
-        if device == "cuda":
+                                    st["overflow"], al.genome_size, st,
+                                    schedule_t=pos_t)
+        if device == "cuda" and mode == "probe":
             e = engine_phase(step, batches, batch)
             res[f"seed_phase_{mode}"] = dict(
                 wall_ms_per_batch=e["wall_ms_per_batch"],
                 device_busy_ms_per_batch=e["device_busy_ms_per_batch"],
                 device_ops_per_batch=e["device_ops_per_batch"])
+        elif device == "cuda":
+            # the cuckoo seed phase is one K7 launch: torch.profiler at
+            # times reports no device event for a window that holds only
+            # K7's launches (2 of 14 such windows on an H100), so CUDA
+            # events time it, over all the batches
+            every = lambda: [step(b) for b in batches]
+            k0 = kx.LAUNCHES["K7_seed_lookup"]
+            every()
+            k7 = (kx.LAUNCHES["K7_seed_lookup"] - k0) / len(batches)
+            res[f"seed_phase_{mode}"] = dict(
+                wall_ms_per_batch=time_ms(every, 4) / len(batches),
+                device_busy_ms_per_batch=device_ms(every, 4) / len(batches),
+                k7_launches_per_batch=k7)
         if mode == "probe":
             chains = [longest_chain(al, b) for b in batches]
             res["longest_probe_chain"] = max(c[0] for c in chains)
@@ -3440,9 +3565,10 @@ def engine_phase(step, batches, per_batch, n_warm=2, n_timed=4):
                 kernel_events_per_batch=prof["kernel_events"])
 
 
-def single_engine_phase(idx, codes, batch):
+def single_engine_phase(idx, codes, batch, genome):
     """SingleAligner.align_batch_device + fetch on the first batches of
-    the single-end reads."""
+    the single-end reads; then K7 at the cells' batches on the same index
+    (k7_cells)."""
     import torch
     from snap_rnaseq_tpu_torch.index.hash_index import GenomeIndex
     from snap_rnaseq_tpu_torch.models.single import SingleAligner, fetch
@@ -3450,8 +3576,9 @@ def single_engine_phase(idx, codes, batch):
     quals = torch.full((batch, READ_LEN), ord("I"), dtype=torch.uint8,
                        device="cuda")
     batches = [codes[i * batch:(i + 1) * batch] for i in range(6)]
-    return engine_phase(lambda b: fetch(aligner.align_batch_device(
+    res = engine_phase(lambda b: fetch(aligner.align_batch_device(
         torch.from_numpy(b).cuda(), quals)), batches, batch)
+    return res, k7_cells(aligner, genome)
 
 
 def paired_engine_phase(idx, r0, q0, r1, q1, batch):
@@ -3588,6 +3715,28 @@ def kernel_entry(name, source, replaces, by_path, at_path):
                 by_path=by)
 
 
+def k7_entry(cells, by_path):
+    """K7's entry of the kernels line: its launches by path (no call of it
+    is recorded: each would copy the index's bucket tables) and its runs
+    at the cells' batches (k7_cells); the top-level times are the single
+    cell's."""
+    top = cells[0]
+    return dict(name="K7_seed_lookup", route="cuda",
+                source="snap_rnaseq_tpu_torch/csrc/seed_lookup.cu",
+                replaces="none: snap_rnaseq_tpu/models/single.py "
+                "seed_phase with ops/lookup.py pack_seeds and "
+                "lookup_seeds_cuckoo, fused by XLA",
+                launches=sum(l.get("K7_seed_lookup", 0)
+                             for l in by_path.values()),
+                max_abs_err=0.0, device_ms=top["device_ms"],
+                bound_ms=top["bound_ms"], bound_by=top["bound_by"],
+                plain_ms=top["plain_ms"], library_ms=None, path="cells",
+                cells=cells,
+                by_path={p: dict(launches=l["K7_seed_lookup"])
+                         for p, l in by_path.items()
+                         if l.get("K7_seed_lookup")})
+
+
 # ---------------------------------------------------------------- main
 
 def main():
@@ -3627,7 +3776,8 @@ def main():
     checks = [check_k1(dev, rng), check_k1_rescue(dev, rng),
               check_k2(dev, rng), check_k2_rescue(dev, rng),
               check_k3(dev, rng), check_k4(dev, rng), check_k5(dev, rng),
-              check_k6(dev, rng), check_long_reads(dev, rng)]
+              check_k6(dev, rng), check_long_reads(dev, rng),
+              check_k7(dev, rng)]
     for c in checks:
         log(f"{c['name']}: {c['rows']} rows match the plain version, "
             f"max_abs_err {c['max_abs_err']}")
@@ -3752,6 +3902,7 @@ def main():
 
     kernels = [kernel_entry(name, source, replaces, by_path, at_path)
                for name, (source, replaces) in KERNEL_INFO.items()]
+    kernels.append(k7_entry(single["k7_cells"], by_path))
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -341,7 +341,7 @@ def _paired_align_batch(reads0, quals0, reads1, quals1, state, schedule,
     with stats.span("seed"):
         seeds = sg.seed_phase(reads_cat, sched_static, seed_len,
                               state["overflow"], genome_size, state,
-                              select_first_valid=S)
+                              select_first_valid=S, schedule_t=schedule)
         sel_pos = seeds["sel_pos"]                        # (2B, S)
         sched_tab = sg.row_select(schedule[None, :].expand(B2, S_all),
                                   sel_pos)

@@ -8,7 +8,8 @@ location can win (BaseAligner.cpp:510-1399).  Here, as in the JAX engine,
 a batch of reads goes through phases over whole tensors:
 
   seed_phase      pack + look up every scheduled seed at once (cuckoo
-                  layout, or the probe chain under SNAP_TPU_LOOKUP=probe)
+                  layout, on a card in one kernel, K7; or the probe chain
+                  under SNAP_TPU_LOOKUP=probe)
   budget_phase    seed budget / popularity / lowest-possible-score tables
   expand_phase    every hit -> candidate slot (rare-seed-first, stable)
   _aggregate_rows rowwise (dir, loc) sort + segmented element/candidate
@@ -245,8 +246,12 @@ def _full_like(x, v):
 # ----------------------------------------------------------------------
 
 def seed_phase(reads, schedule, seed_len, overflow, genome_size, tables,
-               select_first_valid: int = 0):
+               select_first_valid: int = 0, schedule_t=None):
     """Pack + look up every scheduled seed.
+
+    schedule: the positions as a tuple; schedule_t: the same positions as
+    an int32 tensor on the reads' device where the caller holds one (K7
+    reads it; without it K7's route copies them there, schedule_on).
 
     tables: the index tensors (index_state_from_numpy): the cuckoo layout
     when they hold one (ck_buckets, ck_buckets2, ck_stash), else the
@@ -255,7 +260,29 @@ def seed_phase(reads, schedule, seed_len, overflow, genome_size, tables,
     select_first_valid=N: look up only each read's first N VALID schedule
     positions (the paired engine's budget, one unit per valid position,
     never reaches past them); out["sel_pos"] (B, N) holds the selected
-    position indices, 0 where a read has fewer valid positions."""
+    position indices, 0 where a read has fewer valid positions.
+
+    Routed by what the inputs are (seed_kernel_route): a cuckoo layout on
+    a card goes to K7 (ops/lookup.py seed_lookup_cuda), everything else to
+    seed_phase_plain; both give the same outputs."""
+    if seed_kernel_route(reads, tables):
+        if schedule_t is None:
+            schedule_t = schedule_on(schedule, reads.device)
+        return lk.seed_lookup_cuda(reads, schedule_t, seed_len, tables,
+                                   overflow, genome_size, select_first_valid)
+    return seed_phase_plain(reads, schedule, seed_len, overflow, genome_size,
+                            tables, select_first_valid)
+
+
+def seed_kernel_route(reads, tables) -> bool:
+    """Does seed_phase take K7: reads on a card and a cuckoo layout?"""
+    return reads.is_cuda and "ck_buckets" in tables
+
+
+def seed_phase_plain(reads, schedule, seed_len, overflow, genome_size,
+                     tables, select_first_valid: int = 0):
+    """seed_phase as a chain of torch operations: pack_seeds, the
+    first-N-valid selection, the layout's lookup, expand_counts."""
     packed = lk.pack_seeds(reads, schedule, seed_len)
     sel_pos = None
     if select_first_valid:
@@ -1235,11 +1262,13 @@ def flat_align_batch(aligner, reads: torch.Tensor, quals: torch.Tensor):
     st = aligner.state
     seed_len = aligner.index.seed_len
     as_t = lambda a: torch.from_numpy(np.asarray(a, np.int32)).to(dev)
+    schedule = as_t(positions)
     seeds = seed_phase(reads, tuple(int(x) for x in positions), seed_len,
-                       st["overflow"], aligner.genome_size, st)
+                       st["overflow"], aligner.genome_size, st,
+                       schedule_t=schedule)
     counts = torch.where(seeds["found"][:, :, None], seeds["counts"], 0)
     budget = budget_phase(seeds["valid"], counts, as_t(wraps), cfg)
-    cands = expand_phase(seeds, budget, as_t(positions), st["overflow"],
+    cands = expand_phase(seeds, budget, schedule, st["overflow"],
                          cfg, seed_len, L, cfg.cand_per_read)
     u, overflow = compact_phase(aggregate_phase(cands), B, cfg)
     sc = filtered_score_phase(u, reads, quals, st["genome_p4"],
@@ -1275,7 +1304,7 @@ def _align_batch(reads, quals, state, schedule, wraps, *,
     S = schedule.shape[0]
     with stats.span("seed"):
         seeds = seed_phase(reads, sched_static, seed_len, state["overflow"],
-                           genome_size, state)
+                           genome_size, state, schedule_t=schedule)
     with stats.span("budget"):
         counts_global = torch.where(seeds["found"][:, :, None],
                                     seeds["counts"], 0)

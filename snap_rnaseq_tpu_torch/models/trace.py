@@ -45,7 +45,8 @@ def trace_read(aligner, read_codes: np.ndarray, quals: np.ndarray) -> str:
     sched = t(np.asarray(positions, np.int32))
 
     seeds = sg.seed_phase(reads, tuple(int(x) for x in positions), seed_len,
-                          state["overflow"], aligner.genome_size, state)
+                          state["overflow"], aligner.genome_size, state,
+                          schedule_t=sched)
     counts = h(torch.where(seeds["found"][:, :, None], seeds["counts"], 0))
     budget = sg.budget_phase(seeds["valid"], t(counts),
                              t(np.asarray(wraps, np.int32)), cfg)

@@ -52,6 +52,7 @@ SOURCES = {
     "bitpar_rows": "bitpar_rows.cu",      # K4
     "lv_onehot": "lv_onehot.cu",         # K5
     "rowwise_front": "rowwise_front.cu",  # K6
+    "seed_lookup": "seed_lookup.cu",      # K7
 }
 
 
@@ -83,6 +84,9 @@ _SIGNATURES = {
                   + [_P] * 6),
     "rowwise_front": ("rowwise_front_launch", [_P, _I, _I] + [_P] * 6
                       + [_I] * 6 + [_F] + [_P] * 5),
+    "seed_lookup": ("seed_lookup_launch", [_P, _I, _I, _P, _I, _I, _I, _P,
+                                           _I, _P, _I, _P, _I, _P, _I,
+                                           ctypes.c_uint] + [_P] * 7),
 }
 
 for _name in _DEFINES:
@@ -95,7 +99,7 @@ _SETTERS = {"lv_cigar": "lv_cigar_set_warps"}     # K3 warps per block
 # K2 counts its forward (prefilter) and its rescue launches apart
 LAUNCHES = {"K1_lv_lanes": 0, "K2_bitpar_packed": 0, "K2_bitpar_rescue": 0,
             "K3_lv_cigar": 0, "K4_bitpar_rows": 0, "K5_lv_onehot": 0,
-            "K6_rowwise_front": 0}
+            "K6_rowwise_front": 0, "K7_seed_lookup": 0}
 _LOCK = threading.Lock()
 _LAUNCHERS: dict = {}
 _LIBS: dict = {}

@@ -13,7 +13,11 @@ SNAPHashTable::Lookup (HashTable.h:74-105).
   the two-level bucket layout that index/hash_index.py builds;
 * lookup_seeds walks the reference's probe chain over the (slots, 3)
   table instead (SNAP_TPU_LOOKUP=probe): a gather chain in torch code,
-  not a kernel.
+  not a kernel;
+* seed_lookup_cuda runs the whole cuckoo seed phase on a card as one
+  kernel, K7 (csrc/seed_lookup.cu): packing, the first-N-valid selection,
+  both bucket rows and the stash, and expand_counts of both halves, with
+  the outputs of models/single.py seed_phase_plain, its plain version.
 
 All u32 values ride in int32 tensors (ops/u32.py); the hash runs in int64,
 where the 32x32-bit products are exact after masking.
@@ -22,7 +26,9 @@ from __future__ import annotations
 
 import torch
 
-from ..constants import INVALID_GENOME_LOCATION, UNUSED_HASH_VALUE
+from ..constants import (INVALID_GENOME_LOCATION, MAX_SEED_LENGTH,
+                         MIN_SEED_LENGTH, UNUSED_HASH_VALUE)
+from ..index.hash_index import CUCKOO_STASH
 from ..utils import stats
 from . import u32
 
@@ -294,3 +300,77 @@ def gather_hit(slot_in_list, count, list_base, val, overflow):
     else:
         from_ovf = torch.zeros_like(val)
     return torch.where(direct, val, from_ovf)
+
+
+def seed_lookup_cuda(reads, positions, seed_len: int, tables: dict,
+                     overflow, genome_size: int,
+                     select_first_valid: int = 0) -> dict:
+    """K7 wrapper: models/single.py seed_phase's outputs (valid, found,
+    counts, bases, vals, and sel_pos when select_first_valid = N > 0) from
+    the cuckoo layout in `tables`, in one launch on the current stream.
+
+    positions: the schedule's S positions, an int32 tensor on the reads'
+    card (the engines' `schedule`), each >= 0 as a schedule's are (a seed
+    past the read's end repeats its last base, as pack_seeds does; K7
+    reads a negative position as 0).  Checks the seed length,
+    N (0-S), dtypes, shapes, contiguity and alignment, then that the
+    tensors are on a card, and raises on what K7 does not take.  Counts
+    K7_seed_lookup and the recorder's lookup.kernel_seeds (the B x (N or
+    S) columns it wrote)."""
+    from . import kernels as kx
+    N = int(select_first_valid)
+    if not MIN_SEED_LENGTH <= seed_len <= MAX_SEED_LENGTH:
+        raise ValueError(f"seed_lookup_cuda takes seed lengths "
+                         f"{MIN_SEED_LENGTH}-{MAX_SEED_LENGTH}, got "
+                         f"{seed_len}")
+    dev = reads.device
+    reads = reads.contiguous()
+    b1, b2, stash = (tables[k] for k in ("ck_buckets", "ck_buckets2",
+                                         "ck_stash"))
+    kx.require(reads, "reads", torch.uint8, 2, dev)
+    kx.require(positions, "positions", torch.int32, 1, dev)
+    kx.require(b1, "ck_buckets", torch.int32, 2, dev)
+    kx.require(b2, "ck_buckets2", torch.int32, 2, dev)
+    kx.require(stash, "ck_stash", torch.int32, 2, dev)
+    kx.require(overflow, "overflow", torch.int32, 1, dev)
+    S = positions.shape[0]
+    if not 0 <= N <= S:
+        raise ValueError(f"seed_lookup_cuda: select_first_valid {N} must "
+                         f"lie in 0-{S} (the schedule's positions)")
+    if (b1.shape[1] != 32 or b2.shape[1] != 32 or min(b1.shape[0],
+                                                      b2.shape[0]) < 1
+            or tuple(stash.shape) != (CUCKOO_STASH, 4)
+            or reads.shape[1] < 1):
+        raise ValueError(
+            f"seed_lookup_cuda: ck_buckets {tuple(b1.shape)}, ck_buckets2 "
+            f"{tuple(b2.shape)} (rows of 32 words), ck_stash "
+            f"{tuple(stash.shape)} ({CUCKOO_STASH} x 4), reads "
+            f"{tuple(reads.shape)}")
+    if dev.type != "cuda":
+        raise RuntimeError(f"seed_lookup_cuda needs CUDA tensors, got {dev}")
+    if any(t.data_ptr() % 16 for t in (b1, b2, stash)):
+        raise ValueError("seed_lookup_cuda: the bucket rows and the stash "
+                         "must start at 16-byte boundaries")
+    B = reads.shape[0]
+    n = N or S
+    i32 = dict(dtype=torch.int32, device=dev)
+    out = dict(valid=torch.empty((B, n), dtype=torch.bool, device=dev),
+               found=torch.empty((B, n), dtype=torch.bool, device=dev),
+               counts=torch.empty((B, n, 2), **i32),
+               bases=torch.empty((B, n, 2), **i32),
+               vals=torch.empty((B, n, 2), **i32))
+    if N:
+        out["sel_pos"] = torch.empty((B, N), **i32)
+    if B == 0 or S == 0:
+        return out
+    err = kx.launcher("seed_lookup")(
+        kx.ptr(reads), B, reads.shape[1], kx.ptr(positions), S, seed_len, N,
+        kx.ptr(b1), b1.shape[0], kx.ptr(b2), b2.shape[0], kx.ptr(stash),
+        stash.shape[0], kx.ptr(overflow), overflow.shape[0],
+        int(genome_size) & _M32, kx.ptr(out["valid"]), kx.ptr(out["found"]),
+        kx.ptr(out["counts"]), kx.ptr(out["bases"]), kx.ptr(out["vals"]),
+        kx.ptr(out.get("sel_pos")), kx.stream())
+    kx.check(err, "seed_lookup_launch")
+    kx.count_launch("K7_seed_lookup")
+    stats.count("lookup.kernel_seeds", B * n)
+    return out

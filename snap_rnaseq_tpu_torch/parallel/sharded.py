@@ -229,11 +229,13 @@ def _end_pipeline(reads, quals, shards, sched, schedule, wraps, cfg,
     n_idx = len(shards)
     big = sg.big_locations(genome_size)
     seeds = []
+    scheds = [schedule.to(st["overflow"].device) for st in shards]
     for i, st in enumerate(shards):
         with stats.span(f"seed[{i}]"):
             seeds.append(sg.seed_phase(reads.to(st["overflow"].device),
                                        sched, seed_len, st["overflow"],
-                                       genome_size, st))
+                                       genome_size, st,
+                                       schedule_t=scheds[i]))
     with stats.span("psum"):
         counts_global = _psum([torch.where(s["found"][:, :, None],
                                            s["counts"], 0) for s in seeds],
@@ -246,7 +248,7 @@ def _end_pipeline(reads, quals, shards, sched, schedule, wraps, cfg,
         dev = st["overflow"].device
         with stats.span(f"expand[{i}]"):
             cands.append(sg.expand_phase(
-                s, _on(budget, dev), schedule.to(dev), st["overflow"], cfg,
+                s, _on(budget, dev), scheds[i], st["overflow"], cfg,
                 seed_len, read_len, cfg.cand_per_read, big=big))
     with stats.span("gather"):
         gathered = {k: _all_gather_rows([c[k] for c in cands], lead)

@@ -24,7 +24,8 @@ exactly the split SURVEY.md §7 prescribes.
 Port of snap_rnaseq_tpu/rna/filter.py: the host logic is the same; the
 batched characterizer (characterize_batch, BatchCharacterizer) is torch
 code on the genome aligner's device, over the genome aligner's seed
-lookup (the cuckoo layout, or the probe chain under SNAP_TPU_LOOKUP=probe).
+phase (models/single.py seed_phase: the cuckoo layout, in K7 on a card,
+or the probe chain under SNAP_TPU_LOOKUP=probe).
 """
 from __future__ import annotations
 
@@ -477,17 +478,20 @@ def characterize_batch(reads: torch.Tensor, state: dict, *, positions,
     forward groups first; loc is the hit minus the seed's read offset in
     int32 (it wraps for genomes past 2^31 exactly as the int32 arithmetic
     of the JAX package's characterizer does)."""
-    from ..models.single import lookup, row_select
+    from ..models.single import row_select, seed_phase
     from ..ops import lookup as lk
     dev = reads.device
     i32 = torch.int32
-    overflow, genome_size = state["overflow"], state["genome_size"]
-    packed = lk.pack_seeds(reads, positions, seed_len)
-    found, fv, rv = lookup(packed, state)
-    cf, bf = lk.expand_counts(fv, overflow, genome_size)
-    cr, br = lk.expand_counts(rv, overflow, genome_size)
-    okf = found & packed["valid"] & (cf > 0) & (cf <= max_hits)
-    okr = found & packed["valid"] & (cr > 0) & (cr <= max_hits)
+    overflow = state["overflow"]
+    pos_t = torch.tensor(positions, dtype=i32, device=dev)
+    seeds = seed_phase(reads, positions, seed_len, overflow,
+                       state["genome_size"], state, schedule_t=pos_t)
+    found = seeds["found"] & seeds["valid"]
+    cf, cr = seeds["counts"].unbind(2)
+    bf, br = seeds["bases"].unbind(2)
+    fv, rv = seeds["vals"].unbind(2)
+    okf = found & (cf > 0) & (cf <= max_hits)
+    okr = found & (cr > 0) & (cr <= max_hits)
     used2 = torch.cat([torch.where(okf, cf, 0),
                        torch.where(okr, cr, 0)], dim=1)           # (B, 2S)
     B, S2 = used2.shape
@@ -507,7 +511,7 @@ def characterize_batch(reads: torch.Tensor, state: dict, *, positions,
     hit = lk.gather_hit(within, None, g_base, g_val, overflow)
     s_idx = torch.where(group < S, group, group - S)
     is_rc = group >= S
-    pos_arr = torch.tensor(positions, dtype=i32, device=dev)[s_idx.long()]
+    pos_arr = pos_t[s_idx.long()]
     adj = torch.where(is_rc, read_len - seed_len - pos_arr, pos_arr)
     return dict(loc=hit - adj, seed_off=pos_arr, is_rc=is_rc, live=live,
                 total=total)

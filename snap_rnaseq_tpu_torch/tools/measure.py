@@ -48,7 +48,8 @@ KERNEL_NAMES = (("K1_lv_lanes", "lv_lanes_kernel"),
                 ("K3_lv_cigar", "lv_cigar_kernel"),
                 ("K4_bitpar_rows", "bitpar_rows_kernel"),
                 ("K5_lv_onehot", "lv_onehot_kernel"),
-                ("K6_rowwise_front", "rowwise_front_kernel"))
+                ("K6_rowwise_front", "rowwise_front_kernel"),
+                ("K7_seed_lookup", "seed_lookup_kernel"))
 
 
 def log(msg: str) -> None:

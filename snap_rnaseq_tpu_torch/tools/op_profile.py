@@ -29,9 +29,10 @@ stacks, and the card's operations).  Prints one JSON line:
   * the recorder's counters over the profiled batches, a batch: reads,
     truncated reads, host syncs (engine.syncs), probe windows of the
     probe-chain lookup (lookup.probe_windows, under
-    SNAP_TPU_LOOKUP=probe), and the caching allocator's cudaMallocs and
-    allocation retries across the batch spans (alloc.device_mallocs,
-    alloc.retries; on a card).
+    SNAP_TPU_LOOKUP=probe), the (read, position) columns K7 looked up
+    (lookup.kernel_seeds: the cuckoo seed phase reached the kernel), and
+    the caching allocator's cudaMallocs and allocation retries across the
+    batch spans (alloc.device_mallocs, alloc.retries; on a card).
 On the card the JAX tool's xplane parsing becomes the profiler's device
 events; it raises if the profiler saw no device operation.  On the CPU
 (`--device cpu`) it profiles the host's aten:: operations by self time

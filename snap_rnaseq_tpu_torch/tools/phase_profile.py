@@ -78,7 +78,8 @@ def flat_phases(pa, r0, q0) -> dict:
         fns[name] = fn
         v[name] = fn()
     phase("seed", lambda: sg.seed_phase(r0, sched_static, seed_len,
-                                        st["overflow"], gsize, st))
+                                        st["overflow"], gsize, st,
+                                        schedule_t=sched))
     counts = torch.where(v["seed"]["found"][:, :, None],
                          v["seed"]["counts"], 0)
     phase("budget", lambda: sg.budget_phase(v["seed"]["valid"], counts,
@@ -126,7 +127,7 @@ def paired_phases(pa, r0, q0, r1, q1) -> dict:
         v[name] = fn()
     phase("pair:seed", lambda: sg.seed_phase(
         reads, sched_static, seed_len, st["overflow"], gsize, st,
-        select_first_valid=S))
+        select_first_valid=S, schedule_t=sched))
     seeds = v["pair:seed"]
 
     def budget():

@@ -513,6 +513,107 @@ def test_rowwise_score_phase_on_card_equals_cpu(card, big):
     assert 0 < int(want["n_fast"]) < int(want["scored_ok"].sum())
 
 
+def _k7_inputs(card, case):
+    """A tools/cuckoo_cases.py case's reads, schedule, layout and overflow
+    table on the card."""
+    tables = {k: u32.from_numpy(case[k], card)
+              for k in ("ck_buckets", "ck_buckets2", "ck_stash")}
+    return (torch.from_numpy(case["reads"]).to(card),
+            tuple(int(p) for p in case["positions"]), tables,
+            torch.from_numpy(case["overflow"]).to(card))
+
+
+def _k7_against_plain(card, case, seed_len, N):
+    """seed_phase (K7, one launch) against seed_phase_plain on the same
+    card tensors: every output equal, dtype and shape included.  Returns
+    the plain outputs."""
+    from snap_rnaseq_tpu_torch.models import single as sg
+    reads, pos, tables, ovf = _k7_inputs(card, case)
+    args = (reads, pos, seed_len, ovf, case["genome_size"], tables, N)
+    before = kernels.LAUNCHES["K7_seed_lookup"]
+    got = sg.seed_phase(*args)
+    assert kernels.LAUNCHES["K7_seed_lookup"] == before + 1
+    want = sg.seed_phase_plain(*args)
+    assert set(got) == set(want)
+    for k, w in want.items():
+        assert got[k].dtype == w.dtype and got[k].shape == w.shape, k
+        assert torch.equal(got[k], w), k
+    return want
+
+
+@pytest.mark.parametrize("seed_len", [16, 20, 25])
+@pytest.mark.parametrize("S,N", [(48, 0), (32, 8)])
+@pytest.mark.parametrize("big", [False, True])
+def test_k7_matches_plain(card, seed_len, S, N, big):
+    """K7 against the plain chain on 3,000 reads over a layout holding
+    their seeds in h1 buckets, h2 buckets and the stash (three stash keys
+    held three times), a fifth absent: reads with N bases, all N, or N
+    over most of their length (fewer valid positions than N), palindromic
+    seeds (even lengths), a schedule position past the read's end,
+    overflow counts, overflow references past the table; genome sizes 4 M
+    (with values whose overflow offset is negative as int32) and 3.5 G
+    (locations past 2^31)."""
+    from snap_rnaseq_tpu_torch.tools import cuckoo_cases as cc
+    rng = np.random.default_rng(100 * seed_len + 10 * S + big)
+    case = cc.seed_case(rng, 3000, 100, seed_len, S,
+                        genome_size=3_500_000_000 if big else 4_000_000,
+                        past_end=True, wild=not big)
+    assert min(case["placed"].values()) > 0, case["placed"]
+    want = _k7_against_plain(card, case, seed_len, N)
+    valid, found = want["valid"], want["found"]
+    assert (found & valid).any() and (valid & ~found).any()
+    assert (~valid).any() and (want["counts"] > 1).any()
+    direct = want["counts"] == 1
+    assert ((want["vals"] < 0) & direct).any() == big
+    assert (want["bases"] < -1).any() == (not big)
+    if N:
+        assert (~valid).any(dim=1).any()
+    f, rc, ok = cc.pack(case["reads"], case["positions"], seed_len)
+    assert ((f == rc) & ok).any() == (seed_len % 2 == 0)
+
+
+@pytest.mark.parametrize("S,N", [(48, 0), (32, 8)])
+def test_k7_at_the_cells_shape(card, S, N):
+    """K7 at the 64 Mb cells' batches: 131,072 reads of 100 bases, seed
+    length 20, 48 positions (single) or 32 positions and the first 8
+    valid (pairs)."""
+    from snap_rnaseq_tpu_torch.tools import cuckoo_cases as cc
+    case = cc.seed_case(np.random.default_rng(S + N), 131_072, 100, 20, S)
+    _k7_against_plain(card, case, 20, N)
+
+
+def test_characterize_batch_on_card_equals_cpu(card):
+    """rna/filter.py characterize_batch on the card (its seed phase in
+    K7, one launch) against the CPU's plain chain: every output equal."""
+    from snap_rnaseq_tpu_torch.rna import filter as tfilter
+    from snap_rnaseq_tpu_torch.utils.seed_sequencer import (
+        seed_position_schedule)
+    codes = hg_like_genome(300_000, seed=4)
+    index = build_index(genome_from_codes(codes), seed_len=20)
+    rng = np.random.default_rng(2)
+    B, L = 512, 100
+    starts = rng.integers(0, codes.size - L, B)
+    reads = codes[starts[:, None] + np.arange(L)].copy()
+    sub = rng.random((B, L)) < 0.02
+    reads[sub] = (reads[sub] + 1) % 4
+    reads[::7, 40:45] = 4                          # N bases
+    positions = tuple(int(p) for p in seed_position_schedule(L, 20)[0][:12])
+    kw = dict(positions=positions, seed_len=20, max_hits=300, read_len=L,
+              cpr=64)
+    kernels.reset_launches()
+    got = tfilter.characterize_batch(
+        torch.from_numpy(reads).to(card),
+        SingleAligner(index, device=card).state, **kw)
+    assert kernels.LAUNCHES["K7_seed_lookup"] == 1
+    want = tfilter.characterize_batch(
+        torch.from_numpy(reads), SingleAligner(index, device="cpu").state,
+        **kw)
+    assert set(got) == set(want)
+    for k, w in want.items():
+        assert torch.equal(got[k].cpu(), w), k
+    assert want["live"].any()
+
+
 @pytest.mark.parametrize("P", [150, 250])
 def test_lv_kernels_long_reads(card, P, monkeypatch):
     """K1 and K5 at the single and paired e_max (16, 17) with free
@@ -584,6 +685,7 @@ def test_aligner_on_card_equals_cpu(card, L):
     assert kernels.LAUNCHES["K1_lv_lanes"] > 0
     assert kernels.LAUNCHES["K2_bitpar_packed"] > 0
     assert kernels.LAUNCHES["K6_rowwise_front"] > 0
+    assert kernels.LAUNCHES["K7_seed_lookup"] == 1
     want = SingleAligner(index, device="cpu").align_batch(reads, quals)
     for k, v in want.items():
         if v.dtype == np.float32:
@@ -610,6 +712,7 @@ def test_paired_aligner_on_card_equals_cpu(card, L):
     for name in ("K1_lv_lanes", "K2_bitpar_packed", "K2_bitpar_rescue",
                  "K6_rowwise_front"):
         assert kernels.LAUNCHES[name] > 0, name
+    assert kernels.LAUNCHES["K7_seed_lookup"] == 1
     want = PairedAligner(index, device="cpu").align_batch(r0, q0, r1, q1)
     for k, v in want.items():
         if v.dtype == np.float32:
@@ -683,6 +786,7 @@ def test_probe_lookup_aligner_on_card_equals_cpu(card, kind, monkeypatch):
     assert "ht_entries" in al.state and "ck_buckets" not in al.state
     got = al.align_batch(*args)
     assert kernels.LAUNCHES["K1_lv_lanes"] > 0
+    assert kernels.LAUNCHES["K7_seed_lookup"] == 0
     want = make(index, device="cpu").align_batch(*args)
     for k, v in want.items():
         if v.dtype == np.float32:
@@ -763,8 +867,10 @@ def test_mesh_on_card_equals_cpu(card, kind):
         *args)
     for name in path:
         assert kernels.LAUNCHES[name] > 0, name
-    # the prefilter once per coordinate and end: 2 x 2 coordinates
+    # the prefilter and the seed phase once per coordinate and end: 2 x 2
+    # coordinates
     assert kernels.LAUNCHES["K2_bitpar_packed"] == 4 * (len(args) // 2)
+    assert kernels.LAUNCHES["K7_seed_lookup"] == 4 * (len(args) // 2)
     want = make(index, sharded.make_mesh(2, 2, device="cpu")).align_batch(
         *args)
     assert set(got) == set(want)
